@@ -1,0 +1,41 @@
+"""Rank-aware logging, the role of the reference's ``LOG(level, rank)`` macro
+(``horovod/common/logging.h:1-64``): env-controlled severity via
+``HOROVOD_LOG_LEVEL`` with optional timestamps."""
+
+from __future__ import annotations
+
+import logging
+import sys
+
+from . import env
+
+_LEVELS = {
+    "trace": 5,
+    "debug": logging.DEBUG,
+    "info": logging.INFO,
+    "warning": logging.WARNING,
+    "error": logging.ERROR,
+    "fatal": logging.CRITICAL,
+}
+
+_configured = False
+
+
+def get_logger(name: str = "horovod_tpu_torch") -> logging.Logger:
+    global _configured
+    logger = logging.getLogger(name)
+    if not _configured:
+        level = _LEVELS.get(env.get_str(env.HOROVOD_LOG_LEVEL, "warning").lower(),
+                            logging.WARNING)
+        handler = logging.StreamHandler(sys.stderr)
+        if env.get_bool(env.HOROVOD_LOG_HIDE_TIMESTAMP):
+            fmt = "[%(levelname)s %(name)s] %(message)s"
+        else:
+            fmt = "%(asctime)s [%(levelname)s %(name)s] %(message)s"
+        handler.setFormatter(logging.Formatter(fmt))
+        root = logging.getLogger("horovod_tpu_torch")
+        root.addHandler(handler)
+        root.setLevel(level)
+        root.propagate = False
+        _configured = True
+    return logger

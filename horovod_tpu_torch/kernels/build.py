@@ -1,0 +1,85 @@
+"""Builds the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
+package, then loaded with ``ctypes``.  The hash covers the source and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing is built at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libraries: Dict[str, ctypes.CDLL] = {}
+#: name -> seconds ``nvcc`` took, for the builds this process ran.
+build_seconds: Dict[str, float] = {}
+#: name -> what ``nvcc`` printed (``-Xptxas -v``: registers, shared memory,
+#: spills per kernel), for the builds this process ran.
+build_log: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin; "
+            "the port's CUDA kernels are built from source at first use")
+    return path
+
+
+def library_path(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile(name: str) -> Path:
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                      str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    # Atomic publish: a concurrent process never loads a half-written file.
+    os.replace(tmp, out)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = proc.stdout + proc.stderr
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, compiled if needed."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is None:
+            lib = _libraries[name] = ctypes.CDLL(str(_compile(name)))
+        return lib
