@@ -1,12 +1,16 @@
-"""Carry flax ResNet weights into the port's modules.
+"""Carry flax weights into the port's modules.
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of **numpy**
 arrays that flax's ``variables["params"]`` / ``variables["batch_stats"]``
 hold (so it needs no JAX) and returns a ``state_dict`` for
-:class:`horovod_tpu_torch.models.resnet.ResNet`.  The port names its
-submodules after flax's auto-names, so the key paths match one to one; only
-layouts change: conv kernels HWIO → OIHW, ``Dense`` kernels ``[in, out]`` →
-``[out, in]``.  ``FusedConv1x1BN`` keeps its ``[Cin, Cout]`` kernel.
+:class:`horovod_tpu_torch.models.resnet.ResNet` or
+:class:`horovod_tpu_torch.models.transformer.Transformer`.  The port names
+its submodules after flax's names, so the key paths match one to one; only
+layouts change: conv kernels HWIO → OIHW, the ResNet's ``Dense_0`` kernel
+``[in, out]`` → ``[out, in]``.  ``FusedConv1x1BN`` and the transformer's
+``Dense`` modules (``qkv``, ``out``, ``ffn_in``, ``ffn_out``) keep flax's
+``[in, out]`` kernels.  Leaves still boxed in ``nn.Partitioned`` (the
+transformer's ``nn.with_partitioning`` annotations) are unboxed here.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 
 def _convert(path: str, value) -> torch.Tensor:
+    if hasattr(value, "unbox"):  # flax nn.Partitioned, without importing it
+        value = value.unbox()
     arr = np.array(value, dtype=np.float32)  # a writable copy
     module, _, leaf = path.rpartition(".")
     if leaf == "kernel" and arr.ndim == 4:

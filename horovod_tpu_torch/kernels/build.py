@@ -17,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -83,3 +84,12 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libraries[name] = ctypes.CDLL(str(_compile(name)))
         return lib
+
+
+def compile_all(names: Iterable[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` each, all started
+    together; :func:`library` then loads them without building."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(_compile, name) for name in names]:
+            future.result()

@@ -26,7 +26,9 @@ def cross_entropy_loss(logits: torch.Tensor,
 def train_step(model: torch.nn.Module, optimizer,
                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """One step on ``batch = {'x': inputs, 'y': integer labels}``; returns
-    the loss (detached, on the model's device)."""
+    the loss (detached, on the model's device).  For the transformer, ``x``
+    is ``[b, s]`` token ids and ``y`` the ``[b, s]`` labels (the tokens
+    themselves in ``chip_smoke.py``, as in ``benchmarks/bert_bench.py``)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     loss = cross_entropy_loss(model(batch["x"]), batch["y"])

@@ -253,7 +253,7 @@ import torch
 import chip_smoke
 import profile_step
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch.models import resnet
+from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.training import train_step
 
 hvd.init(device="cpu")
@@ -266,6 +266,12 @@ opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
 loss = train_step(model, opt, {{"x": torch.rand(2, 16, 16, 3),
                                 "y": torch.tensor([0, 1])}})
 assert torch.isfinite(loss)
+bert = transformer.Transformer(transformer.tiny_config(causal=False),
+                               generator=torch.Generator().manual_seed(0))
+opt = hvd.DistributedOptimizer(torch.optim.AdamW(bert.parameters()),
+                               named_parameters=bert.named_parameters())
+tokens = torch.randint(0, 128, (2, 16))
+assert torch.isfinite(train_step(bert, opt, {{"x": tokens, "y": tokens}}))
 hvd.shutdown()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
