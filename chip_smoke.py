@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. Build: compiles ``horovod_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
    one ``nvcc`` per source, all started together (from the checkout's
    sources, into ``horovod_tpu_torch/_build/``); prints ptxas' register and
-   spill lines.
+   spill lines, and per flash kernel the ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions ``cuobjdump -sass`` finds: the forward and dK/dV
+   kernels must hold both.
 3. ResNet kernels: ``matmul_bn_stats`` at every distinct ResNet-50 shape of
    the main path (batch 128, 224x224) and two ragged shapes, against its
    plain PyTorch version on the same bf16 inputs; times the kernel, the
@@ -48,6 +50,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +115,10 @@ BERT_SEQ = 512
 BERT_LAYERS = 24
 BERT_PARAMS = 292
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# The kernels built on Hopper's wgmma and TMA: every head_dim's instance
+# must hold both instructions in its SASS.
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+HOPPER_SASS = ("HGMMA", "UTMALDG")
 # (name, b, s, h, d, causal, timed).  The first is the main path's shape,
 # launched once per layer per step by each kernel.
 FLASH_SHAPES = [
@@ -147,6 +155,25 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sass_counts(name: str) -> dict:
+    """``{kernel<head_dim>: {instruction: count}}`` of ``HOPPER_SASS`` in
+    the SASS of the built library ``name`` (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"([a-z_]+_kernel)ILi(\d+)E", line)
+            kernel = (f"{found[1]}<{found[2]}>" if found
+                      else line.split("Function :")[1].strip())
+            counts[kernel] = dict.fromkeys(HOPPER_SASS, 0)
+        elif kernel is not None:
+            for op in HOPPER_SASS:
+                counts[kernel][op] += op in line
+    return counts
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -558,6 +585,16 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}:", line.strip(), flush=True)
+    sass = sass_counts("flash_attention")
+    for kernel, counts in sorted(sass.items()):
+        print(f"sass flash_attention: {kernel} {json.dumps(counts)}",
+              flush=True)
+    for want in HOPPER_KERNELS:
+        found = {k: c for k, c in sass.items() if k.startswith(want + "<")}
+        if len(found) != len(fa.HEAD_DIMS) or not all(
+                all(c.values()) for c in found.values()):
+            raise AssertionError(f"{want}: every head_dim's instance must hold "
+                                 f"{HOPPER_SASS}; cuobjdump found {found}")
 
     rows = phase_kernels()
     rel = phase_reference()

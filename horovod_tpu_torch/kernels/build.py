@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
-package, then loaded with ``ctypes``.  The hash covers the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+package, then loaded with ``ctypes``.  The hash covers the source, the
+headers it may include (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and a stale library is never loaded.
 Nothing is built at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -50,10 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Build output of ``csrc/<name>.cu``, named by a hash of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:

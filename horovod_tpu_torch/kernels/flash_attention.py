@@ -5,7 +5,9 @@ Counterpart of ``_scaled_dot_attention`` (``horovod_tpu/models/transformer.py``
 that it reaches (``jax.experimental.pallas.ops.tpu.flash_attention``: the
 forward ``_flash_attention_impl``, ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``).  The kernels are CUDA C++ for sm_90a
-(``csrc/flash_attention.cu``); layout is the JAX package's ``[b, s, h, d]``.
+(``csrc/flash_attention.cu``; the forward and dK/dV kernels load their tiles
+by TMA and multiply with ``wgmma``); layout is the JAX package's
+``[b, s, h, d]``.
 
 :func:`flash_attention` sends CPU tensors to :func:`attention_reference` and
 :func:`attention_bwd_reference`, the plain versions, and CUDA tensors to the
@@ -29,6 +31,14 @@ from . import build
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 HEAD_DIMS = (64, 128)
+#: Tiles of the forward kernel by head_dim: (queries per work item, keys
+#: per k tile).  A copy of ``FwdPlan`` in ``csrc/flash_attention.cu``,
+#: checked against it when the library loads.
+FWD_TILES = {64: (128, 128), 128: (128, 128)}
+#: Tiles of the dK/dV kernel by head_dim: (keys per block, queries per q
+#: tile), a copy of ``DkvPlan``.  The block loops over q tiles in order,
+#: from the q tile holding its first key when causal, else from 0.
+DKV_TILES = {64: (128, 64), 128: (128, 32)}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,6 +137,15 @@ def _kernels():
     if lib.hvd_flash_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("flash_attention: HvdFlashParams of the CUDA "
                            "source and its ctypes mirror differ in size")
+    lib.hvd_flash_tiles.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.hvd_flash_tiles.restype = ctypes.c_int
+    for d in HEAD_DIMS:
+        tiles = (ctypes.c_int * 4)()
+        if lib.hvd_flash_tiles(d, tiles) != 0 or \
+                tuple(tiles) != FWD_TILES[d] + DKV_TILES[d]:
+            raise RuntimeError(f"flash_attention: tiles of the CUDA source at "
+                               f"head_dim {d} are {tuple(tiles)}, the wrapper's "
+                               f"{FWD_TILES[d] + DKV_TILES[d]}")
     fns = {}
     for name in LAUNCHES:
         fn = getattr(lib, f"hvd_{name}_bf16")
