@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. Build: compiles ``horovod_tpu_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
    one ``nvcc`` per source, all started together (from the checkout's
    sources, into ``horovod_tpu_torch/_build/``); prints ptxas' register and
-   spill lines, and per flash kernel the ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions ``cuobjdump -sass`` finds: the forward and dK/dV
-   kernels must hold both.
+   spill lines, and per kernel instance the ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions ``cuobjdump -sass`` finds: every
+   instance of the three flash kernels and of ``matmul_bn_stats`` must hold
+   both.
 3. ResNet kernels: ``matmul_bn_stats`` at every distinct ResNet-50 shape of
    the main path (batch 128, 224x224) and two ragged shapes, against its
-   plain PyTorch version on the same bf16 inputs; times the kernel, the
-   plain version and one library yardstick; computes each shape's bound.
+   plain PyTorch version on the same bf16 inputs, with the same bits on a
+   second launch; times the kernel, the plain version and one library
+   yardstick; computes each shape's bound.
 4. ResNet reference: a fused ResNet at ResNet-50's four stage widths in bf16
    on the card (kernel) against the same weights in fp32 on the CPU (plain
    version), on a small input.
@@ -115,9 +117,14 @@ BERT_SEQ = 512
 BERT_LAYERS = 24
 BERT_PARAMS = 292
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
-# The kernels built on Hopper's wgmma and TMA: every head_dim's instance
-# must hold both instructions in its SASS.
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+# The kernels built on Hopper's wgmma and TMA, by library, with the template
+# argument of each instance (head_dim; B8's columns per tile): every
+# instance must hold both instructions in its SASS.
+HOPPER_KERNELS = {
+    "flash_attention": {name: fa.HEAD_DIMS for name in (
+        "flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")},
+    "matmul_bn_stats": {"matmul_bn_stats_kernel": (64, 128)},
+}
 HOPPER_SASS = ("HGMMA", "UTMALDG")
 # (name, b, s, h, d, causal, timed).  The first is the main path's shape,
 # launched once per layer per step by each kernel.
@@ -226,7 +233,11 @@ def check_kernel_shape(m: int, k: int, n: int, gen: torch.Generator,
     w = (torch.randn(k, n, device=dev, generator=gen)
          / math.sqrt(k)).to(torch.bfloat16)
     y, s1, s2 = conv_bn_stats.matmul_bn_stats(x, w)
+    # No atomics: a second launch on the same inputs gives the same bits.
+    again = conv_bn_stats.matmul_bn_stats(x, w)
     torch.cuda.synchronize()
+    repeatable = all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+    del again
     _, s1r, s2r = conv_bn_stats.matmul_bn_stats_reference(x, w)
     yr = x.float() @ w.float()   # the plain version's fp32 y, unrounded
     err = (y.float() - yr).abs()
@@ -236,8 +247,9 @@ def check_kernel_shape(m: int, k: int, n: int, gen: torch.Generator,
     s1_rel = ((s1 - s1r).abs() / yr.abs().sum(0)).max().item()
     s2_rel = ((s2 - s2r).abs() / s2r).max().item()
     row = {"m": m, "k": k, "n": n, "max_abs_err": err.max().item(),
-           "y_ulp_ok": y_ok, "s1_rel_err": s1_rel, "s2_rel_err": s2_rel}
-    if not (y_ok and s1_rel <= S_REL and s2_rel <= S_REL):
+           "y_ulp_ok": y_ok, "s1_rel_err": s1_rel, "s2_rel_err": s2_rel,
+           "bitwise_repeatable": repeatable}
+    if not (repeatable and y_ok and s1_rel <= S_REL and s2_rel <= S_REL):
         raise AssertionError(f"matmul_bn_stats disagrees with its plain "
                              f"version at {(m, k, n)}: {row}")
     del yr, s1r, s2r, err, tol
@@ -585,16 +597,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}:", line.strip(), flush=True)
-    sass = sass_counts("flash_attention")
-    for kernel, counts in sorted(sass.items()):
-        print(f"sass flash_attention: {kernel} {json.dumps(counts)}",
-              flush=True)
-    for want in HOPPER_KERNELS:
-        found = {k: c for k, c in sass.items() if k.startswith(want + "<")}
-        if len(found) != len(fa.HEAD_DIMS) or not all(
-                all(c.values()) for c in found.values()):
-            raise AssertionError(f"{want}: every head_dim's instance must hold "
-                                 f"{HOPPER_SASS}; cuobjdump found {found}")
+    for library, kernels in HOPPER_KERNELS.items():
+        sass = sass_counts(library)
+        for kernel, counts in sorted(sass.items()):
+            print(f"sass {library}: {kernel} {json.dumps(counts)}", flush=True)
+        for want, args in kernels.items():
+            found = {k: c for k, c in sass.items() if k.startswith(want + "<")}
+            if set(found) != {f"{want}<{a}>" for a in args} or not all(
+                    all(c.values()) for c in found.values()):
+                raise AssertionError(
+                    f"{want}: every instance ({args}) must hold {HOPPER_SASS}; "
+                    f"cuobjdump found {found}")
 
     rows = phase_kernels()
     rel = phase_reference()

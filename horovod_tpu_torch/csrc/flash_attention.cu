@@ -34,12 +34,10 @@
 // library, so every sum is taken in a fixed order and repeated runs give
 // identical bits.
 //
-// The forward and dK/dV kernels are built for Hopper (see each kernel's
-// note): TMA loads into a ring of shared-memory stages completed on
-// mbarriers, wgmma for every product, one producer warpgroup and two
-// consumer warpgroups with registers moved between them by setmaxnreg
-// (hopper.cuh).  The dQ kernel is the first, simple design: four warps with
-// mma.sync.m16n8k16 on tiles staged by 16-byte loads.
+// All three kernels are built for Hopper (see each kernel's note): TMA
+// loads into a ring of shared-memory stages completed on mbarriers, wgmma
+// for every product, one producer warpgroup and two consumer warpgroups
+// with registers moved between them by setmaxnreg (hopper.cuh).
 //
 // The inputs may be strided views (row stride 3·h·d for the q, k, v slices of
 // a fused qkv projection): the kernels take each input's batch, sequence and
@@ -92,14 +90,9 @@ typedef HvdFlashParams Params;
 
 using namespace hvd_hopper;
 
-// The dQ kernel: four warps, each 16 rows of the block's 64-row tile.
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;
-
-// The forward and dK/dV kernels: two consumer warpgroups, each 64 rows of
-// the block's 128-row tile, then one producer warpgroup (wgmma wants its
-// warpgroups aligned to four warps, so the consumers come first).
+// Every kernel: two consumer warpgroups, each 64 rows of the block's
+// 128-row tile, then one producer warpgroup (wgmma wants its warpgroups
+// aligned to four warps, so the consumers come first).
 // 128·40 + 256·232 = 64,512 of the SM's 65,536 registers: one block per SM.
 constexpr int kWarpgroup = 128;
 constexpr int kConsumers = 2;
@@ -107,99 +100,15 @@ constexpr int kHopperThreads = (kConsumers + 1) * kWarpgroup;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-// Row pitch of a staged tile, in bf16: 8 extra (16 bytes) keeps 16-byte
-// alignment and spreads a fragment's 32 lanes over 32 banks.
-template <int D>
-struct Pitch {
-  static constexpr int value = D + 8;
-};
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a·b on a 16x8 tile: a 16x16 (row major), b 16x8 (column major).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment layouts of m16n8k16 (PTX ISA), with g = lane / 4, t = lane % 4:
-//   A: regs {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}
-//   B: regs {(k 2t..2t+1, n g), (k 2t+8..2t+9, n g)}
-//   C: {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}
-
-// A fragment of rows r0.., columns c0.. of a row-major staged tile.
-template <int P>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int r0,
-                                       int c0, int g, int t) {
-  a[0] = ld32(s + (r0 + g) * P + c0 + 2 * t);
-  a[1] = ld32(s + (r0 + g + 8) * P + c0 + 2 * t);
-  a[2] = ld32(s + (r0 + g) * P + c0 + 2 * t + 8);
-  a[3] = ld32(s + (r0 + g + 8) * P + c0 + 2 * t + 8);
-}
-
-// B fragment (k = column c0.., n = row n0..) of a tile staged [n][k]: the
-// transposed operand of X·Yᵀ, two contiguous bf16 per register.
-template <int P>
-__device__ __forceinline__ void load_b_t(uint32_t (&b)[2], const bf16* s,
-                                         int n0, int c0, int g, int t) {
-  b[0] = ld32(s + (n0 + g) * P + c0 + 2 * t);
-  b[1] = ld32(s + (n0 + g) * P + c0 + 2 * t + 8);
-}
-
-// B fragment (k = row k0.., n = column n0..) of a tile staged [k][n]: the
-// operand of X·Y, two bf16 from neighbouring rows per register.
-template <int P>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* s, int k0,
-                                       int n0, int g, int t) {
-  const bf16* p = s + (k0 + 2 * t) * P + n0 + g;
-  b[0] = pack(p[0], p[P]);
-  b[1] = pack(p[8 * P], p[9 * P]);
-}
-
-// A fragment for k columns 16·kk.. from C accumulators (two 16x8 tiles).
+// The A operand of a wgmma (m64k16, bf16 from registers) for k columns
+// 16·kk.. from the fp32 accumulators of columns 16·kk.. and 16·kk + 8..
+// (hopper.cuh gives both layouts), rounded to bf16.
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
                                        const float (&hi)[4]) {
   a[0] = pack(lo[0], lo[1]);
   a[1] = pack(lo[2], lo[3]);
   a[2] = pack(hi[0], hi[1]);
   a[3] = pack(hi[2], hi[3]);
-}
-
-// Stage rows [row0, row0 + ROWS) of one head's [s, D] slice into a tile of
-// pitch P; rows at or past s are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int s) {
-  constexpr int P = Pitch<D>::value;
-  constexpr int kVecs = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    uint4 val = zero;
-    if (row0 + r < s)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -220,12 +129,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ const bf16* head(const bf16* base,
-                                            const long long (&stride)[3],
-                                            int b, int h) {
-  return base + b * stride[0] + h * stride[2];
 }
 
 // Write rows of a warp's 16 x D accumulator, times `mul`, as bf16 into a
@@ -361,13 +264,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4],
 
 // Named barriers 1 and 2, one per consumer warpgroup (0 is __syncthreads).
 __device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
-               : "memory");
+  bar_sync(id, kConsumers * kWarpgroup);
 }
 
 __device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128)
-               : "memory");
+  bar_arrive(id, kConsumers * kWarpgroup);
 }
 
 // Persistent blocks: block j takes work items j, j + gridDim.x, ... of the
@@ -845,116 +746,252 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
-// dQ, replacing FA:1287.  Bound: 6·b·h·s²·d operations, 13.0 µs at
-// BERT-large's shape: bound by operations.  The first, simple design: one
-// block per (64-query tile, head, batch) looping over k tiles of 64 keys
-// staged by 16-byte loads; four warps of 16 rows each recompute P and dS
-// and accumulate dS K with mma.sync.m16n8k16.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
-  constexpr int P = Pitch<D>::value;
-  constexpr int BN = 64;  // keys per k tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kRows * P;
-  bf16* ks = dos + kRows * P;
-  bf16* vs = ks + BN * P;
+struct DqPlan {
+  static constexpr int kQueries = 64 * kConsumers;  // per work item
+  // Keys per k tile: 128 at D = 64 (fewer, longer products per tile), 64
+  // at D = 128, where dQ's accumulator is twice as large.
+  static constexpr int kKeys = D == 64 ? 128 : 64;
+  static constexpr int kStages = 4;
+  // (Q, dO) tiles in flight: two at D = 64, so the next item's load
+  // overlaps this one; one at D = 128, as in the forward.
+  static constexpr int kQBuffers = D == 64 ? 2 : 1;
+  static constexpr int kQBytes = kQueries * D * 2;  // a Q or dO tile
+  static constexpr int kKvBytes = kKeys * D * 2;    // a K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;
+  // Byte offsets from the 1024-aligned base: the (Q, dO) buffers, the ring
+  // of (K, V) stages, then the barriers q_full[kQBuffers],
+  // q_empty[kQBuffers], full[kStages], empty[kStages].
+  static constexpr int kRing = kQBuffers * 2 * kQBytes;
+  static constexpr int kBars = kRing + kStages * kStageBytes;
+  static constexpr int kSmem = 1024 + kBars + 16 * (kQBuffers + kStages);
+};
 
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-  const bf16* kh = head(p.k, p.k_stride, b, h);
-  const bf16* vh = head(p.v, p.v_stride, b, h);
-  const long long bh = ((long long)b * p.h + h) * p.s;
-
-  load_tile<D, kRows>(qs, head(p.q, p.q_stride, b, h), p.q_stride[1], q0, p.s);
-  load_tile<D, kRows>(dos, head(p.dout, p.do_stride, b, h), p.do_stride[1], q0,
-                      p.s);
-  const float lse[2] = {row_a < p.s ? p.lse[bh + row_a] : 0.0f,
-                        row_b < p.s ? p.lse[bh + row_b] : 0.0f};
-  const float di[2] = {row_a < p.s ? p.di[bh + row_a] : 0.0f,
-                       row_b < p.s ? p.di[bh + row_b] : 0.0f};
-
-  float dq[D / 8][4];
+// dS = P ∘ (dP − di) for one k tile of BN keys from k0, in place of the
+// scores: P = 2^(scale·log2e·S − log2e·lse), from the row's lse2 = log2e·lse
+// and di (0 for rows past s).  With kMasked (a tile that crosses s or the
+// diagonal of this warpgroup) pairs of a key past s or, when causal, past
+// the query get P = 0; without it each P costs one FFMA and one exp2.
+template <int BN, bool kMasked>
+__device__ __forceinline__ void ds_tile(float (&sc)[BN / 8][4],
+                                        const float (&dp)[BN / 8][4],
+                                        const float (&lse2)[2],
+                                        const float (&di)[2], float scale_log2,
+                                        int k0, const int (&last)[2], int t) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
-
-  const int kv_end = p.causal ? min(p.s, q0 + kRows) : p.s;
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();
-    load_tile<D, BN>(ks, kh, p.k_stride[1], k0, p.s);
-    load_tile<D, BN>(vs, vh, p.v_stride[1], k0, p.s);
-    __syncthreads();
-
-    // S = Q Kᵀ and dP = dO Vᵀ: this warp's 16 queries x BN keys.
-    float sc[BN / 8][4];
-    float dp[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][e] = 0.0f;
-        dp[j][e] = 0.0f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4];
-      uint32_t ad[4];
-      load_a<P>(aq, qs, warp * 16, kk * 16, g, t);
-      load_a<P>(ad, dos, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t bk[2];
-        uint32_t bv[2];
-        load_b_t<P>(bk, ks, j * 8, kk * 16, g, t);
-        load_b_t<P>(bv, vs, j * 8, kk * 16, g, t);
-        mma(sc[j], aq, bk);
-        mma(dp[j], ad, bv);
-      }
+    for (int e = 0; e < 4; ++e) {
+      float pv = ex2(fmaf(sc[j][e], scale_log2, -lse2[e >> 1]));
+      if (kMasked && k0 + j * 8 + 2 * t + (e & 1) > last[e >> 1]) pv = 0.0f;
+      sc[j][e] = pv * (dp[j][e] - di[e >> 1]);
     }
-
-    // dS = P ∘ (dP − di), P = exp(scale·S − lse); masked pairs 0.
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool valid =
-            key < p.s && row < p.s && !(p.causal && key > row);
-        const float pv =
-            valid ? __expf(sc[j][e] * p.scale - lse[e >> 1]) : 0.0f;
-        sc[j][e] = pv * (dp[j][e] - di[e >> 1]);
-      }
-
-    // dQ += dS K.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, sc[2 * kk], sc[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bb[2];
-        load_b<P>(bb, ks, kk * 16, n * 8, g, t);
-        mma(dq[n], a, bb);
-      }
-    }
-  }
-
-  store_rows<D>(p.dq, p, b, h, row_a, dq, p.scale, p.scale, t);
 }
 
+// dQ, replacing FA:1287.  Bound: 6·b·h·s²·d operations (three products per
+// (query, key) pair), 13.0 µs at BERT-large's shape at 989 TFLOP/s: bound
+// by operations.
+//
+// The forward's structure with one more score product and no online
+// softmax.  Persistent: one block per SM walks work items of (128-query
+// tile, head, batch).  The producer warpgroup's first thread loads each
+// item's Q and dO tiles once into a free buffer (`q_empty`; two at d = 64)
+// and keeps a ring of four (K, V) stages of 128 keys (64 at d = 128) full
+// with TMA across
+// items.  Each consumer warpgroup owns 64 queries and loads their lse and
+// di once per item.  Per k tile: S = Q Kᵀ and dP = dO Vᵀ by wgmma with both
+// operands in shared memory (K-major); P and dS = P ∘ (dP − di) in fp32 on
+// the accumulators; dQ += dS K by wgmma with dS (bf16) from registers and K
+// read MN-major from shared memory.  S and dP of k tile i are issued before
+// dS K of tile i − 1, so the exp overlaps a product in flight, and the two
+// warpgroups take turns to issue (named barriers).  Masks are applied only
+// on the k tiles that cross s or the diagonal; the causal loop ends at the
+// item's last query.  dQ stays in registers until the item's end and is
+// scaled at the store; no sum leaves the block.
 template <int D>
-constexpr int dq_smem() {
-  return (2 * kRows + 2 * 64) * Pitch<D>::value * (int)sizeof(bf16);
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const Params p) {
+  using L = DqPlan<D>;
+  constexpr int BN = L::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + L::kQBuffers;
+  uint64_t* full = q_empty + L::kQBuffers;
+  uint64_t* empty = full + L::kStages;
+
+  const int row_tiles = (p.s + L::kQueries - 1) / L::kQueries;
+  const long long n_items = (long long)row_tiles * p.h * p.b;
+  auto item = [&](long long w) {
+    return work_item(w, row_tiles, L::kQueries, p.h, p.causal);
+  };
+  auto n_k_tiles = [&](int q0) {
+    return ((p.causal ? min(p.s, q0 + L::kQueries) : p.s) + BN - 1) / BN;
+  };
+  // Q of item n; its dO follows.
+  auto q_tile = [&](int n) {
+    return reinterpret_cast<bf16*>(smem + (n % L::kQBuffers) * 2 * L::kQBytes);
+  };
+  // K of k tile `it`; its V follows.
+  auto k_tile = [&](int it) {
+    return reinterpret_cast<bf16*>(smem + L::kRing +
+                                   (it % L::kStages) * L::kStageBytes);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::kQBuffers; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kConsumers * kWarpgroup);
+    }
+    for (int i = 0; i < L::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers * kWarpgroup);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * kWarpgroup) {
+      int it = 0;  // k tiles loaded so far, over all items
+      int n = 0;   // items so far
+      for (long long w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+        const WorkItem x = item(w);
+        uint64_t* q_bar = &q_full[n % L::kQBuffers];
+        mbar_wait(&q_empty[n % L::kQBuffers], ((n / L::kQBuffers) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_bar, 2 * L::kQBytes);
+        bf16* qs = q_tile(n);
+        load_panels<D, L::kQueries>(qs, &tq, q_bar, x.row0, x.h, x.b);
+        load_panels<D, L::kQueries>(qs + L::kQueries * D, &tdo, q_bar,
+                                    x.row0, x.h, x.b);
+        const int n_tiles = n_k_tiles(x.row0);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int stage = it % L::kStages;
+          mbar_wait(&empty[stage], ((it / L::kStages) & 1) ^ 1);
+          bf16* ks = k_tile(it);
+          mbar_arrive_expect_tx(&full[stage], L::kStageBytes);
+          load_panels<D, BN>(ks, &tk, &full[stage], i * BN, x.h, x.b);
+          load_panels<D, BN>(ks + BN * D, &tv, &full[stage], i * BN, x.h,
+                             x.b);
+        }
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float scale_log2 = p.scale * kLog2e;
+    // Turns to issue, as in the forward: warpgroup 0 goes first, and takes
+    // warpgroup 1's last arrival at the end.
+    auto my_turn = [&] { named_sync(1 + wg); };
+    auto your_turn = [&] { named_arrive(2 - wg); };
+    if (wg == 1) named_arrive(1);
+
+    int it = 0;  // k tiles consumed so far, over all items
+    int n = 0;
+    for (long long w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+      const WorkItem x = item(w);
+      const int qw0 = x.row0 + wg * 64;  // this warpgroup's first query
+      const int row_a = qw0 + warp * 16 + g;  // this thread's two rows
+      const int row_b = row_a + 8;
+      // Each row's last key: past it, keys are masked.
+      const int last[2] = {p.causal ? min(p.s - 1, row_a) : p.s - 1,
+                           p.causal ? min(p.s - 1, row_b) : p.s - 1};
+      const long long bh = ((long long)x.b * p.h + x.h) * p.s;
+      const bool in_a = row_a < p.s;
+      const bool in_b = row_b < p.s;
+      const float lse2[2] = {in_a ? p.lse[bh + row_a] * kLog2e : 0.0f,
+                             in_b ? p.lse[bh + row_b] * kLog2e : 0.0f};
+      const float di[2] = {in_a ? p.di[bh + row_a] : 0.0f,
+                           in_b ? p.di[bh + row_b] : 0.0f};
+      const int n_tiles = n_k_tiles(x.row0);
+
+      float dq[D / 8][4];
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[c][e] = 0.0f;
+      float sc[BN / 8][4];
+      float dp[BN / 8][4];
+      uint32_t a[BN / 16][4];  // dS of the previous k tile, bf16
+      auto ds = [&](int i) {
+        if ((i + 1) * BN > p.s || (p.causal && (i + 1) * BN - 1 > qw0))
+          ds_tile<BN, true>(sc, dp, lse2, di, scale_log2, i * BN, last, t);
+        else
+          ds_tile<BN, false>(sc, dp, lse2, di, scale_log2, i * BN, last, t);
+      };
+      const bf16* qs = q_tile(n);
+      const bf16* dos = qs + L::kQueries * D;
+      auto issue_scores = [&](int cur) {
+        const bf16* ks = k_tile(cur);
+        issue_qk<D, BN, L::kQueries>(sc, qs, wg, ks);
+        issue_qk<D, BN, L::kQueries>(dp, dos, wg, ks + BN * D);
+      };
+
+      // k tile i: S_i and dP_i are issued before dS_{i-1} K_{i-1}, and dS_i
+      // is computed while that product is in flight.
+      mbar_wait(&q_full[n % L::kQBuffers], (n / L::kQBuffers) & 1);
+      mbar_wait(&full[it % L::kStages], (it / L::kStages) & 1);
+      __syncwarp();
+      my_turn();
+      wgmma_fence();
+      issue_scores(it);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(&sc[0][0]);
+      fence_regs<BN / 2>(&dp[0][0]);
+      ds(0);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        c_to_a(a[kk], sc[2 * kk], sc[2 * kk + 1]);
+      for (int i = 1; i < n_tiles; ++i) {
+        const int cur = it + i;
+        mbar_wait(&full[cur % L::kStages], (cur / L::kStages) & 1);
+        __syncwarp();
+        my_turn();
+        wgmma_fence();
+        issue_scores(cur);
+        wgmma_commit();
+        issue_pv<D, BN>(dq, a, k_tile(cur - 1));
+        wgmma_commit();
+        your_turn();
+        wgmma_wait<1>();
+        fence_regs<BN / 2>(&sc[0][0]);
+        fence_regs<BN / 2>(&dp[0][0]);
+        ds(i);
+        // Keep dS ahead of the wait: it is what overlaps dS K.
+        fence_regs<BN / 2>(&sc[0][0]);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(&dq[0][0]);
+        mbar_arrive(&empty[(cur - 1) % L::kStages]);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          c_to_a(a[kk], sc[2 * kk], sc[2 * kk + 1]);
+      }
+      // Every S and dP of this item has completed.
+      mbar_arrive(&q_empty[n % L::kQBuffers]);
+      it += n_tiles;
+      my_turn();
+      wgmma_fence();
+      issue_pv<D, BN>(dq, a, k_tile(it - 1));
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(&dq[0][0]);
+      mbar_arrive(&empty[(it - 1) % L::kStages]);
+      store_rows<D>(p.dq, p, x.b, x.h, row_a, dq, p.scale, p.scale, t);
+    }
+    if (wg == 0) my_turn();
+  }
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory; each caller keeps
@@ -968,17 +1005,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 bool encode(CUtensorMap* map, const bf16* base, const long long (&stride)[3],
             int rows, int d, const Params& p) {
   return encode_bshd(map, base, p.b, p.s, p.h, d, stride, rows);
-}
-
-// Blocks of a persistent kernel: one per SM, or one per work item if fewer.
-int persistent_blocks(long long items) {
-  int device = 0;
-  int sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess || sms < 1)
-    sms = 1;
-  return static_cast<int>(items < sms ? items : sms);
 }
 
 template <int D>
@@ -1017,11 +1043,28 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
 
 template <int D>
 int launch_dq(const Params& p, cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>());
+  using L = DqPlan<D>;
+  static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<D>, L::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((p.s + kRows - 1) / kRows, p.h, p.b);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode(&tq, p.q, p.q_stride, L::kQueries, D, p) ||
+      !encode(&tk, p.k, p.k_stride, L::kKeys, D, p) ||
+      !encode(&tv, p.v, p.v_stride, L::kKeys, D, p) ||
+      !encode(&tdo, p.dout, p.do_stride, L::kQueries, D, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items =
+      (long long)((p.s + L::kQueries - 1) / L::kQueries) * p.h * p.b;
+  flash_bwd_dq_kernel<D><<<persistent_blocks(items), kHopperThreads, L::kSmem,
+                           stream>>>(tq, tk, tv, tdo, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+void tiles(int* out) {
+  const int t[6] = {FwdPlan<D>::kQueries, FwdPlan<D>::kKeys,
+                    DkvPlan<D>::kKeys,    DkvPlan<D>::kQueries,
+                    DqPlan<D>::kQueries,  DqPlan<D>::kKeys};
+  for (int i = 0; i < 6; ++i) out[i] = t[i];
 }
 
 }  // namespace
@@ -1032,19 +1075,16 @@ extern "C" {
 int hvd_flash_params_size() { return static_cast<int>(sizeof(HvdFlashParams)); }
 
 // Tile sizes at `head_dim`, so the caller can check its copy: the forward's
-// queries per work item and keys per k tile, then the dK/dV kernel's keys
-// per block and queries per q tile.  Returns 0, or -1 for another head_dim.
+// queries per work item and keys per k tile, the dK/dV kernel's keys per
+// block and queries per q tile, then the dQ kernel's queries per work item
+// and keys per k tile.  Returns 0, or -1 for another head_dim.
 int hvd_flash_tiles(int head_dim, int* out) {
   if (head_dim == 64) {
-    const int tiles[4] = {FwdPlan<64>::kQueries, FwdPlan<64>::kKeys,
-                          DkvPlan<64>::kKeys, DkvPlan<64>::kQueries};
-    for (int i = 0; i < 4; ++i) out[i] = tiles[i];
+    tiles<64>(out);
     return 0;
   }
   if (head_dim == 128) {
-    const int tiles[4] = {FwdPlan<128>::kQueries, FwdPlan<128>::kKeys,
-                          DkvPlan<128>::kKeys, DkvPlan<128>::kQueries};
-    for (int i = 0; i < 4; ++i) out[i] = tiles[i];
+    tiles<128>(out);
     return 0;
   }
   return -1;

@@ -5,7 +5,8 @@ is a matmul over ``[B*H*W, Cin] @ [Cin, Cout]``; BatchNorm then needs each
 output channel's sum and sum of squares.  The kernel
 (``csrc/matmul_bn_stats.cu``, CUDA C++ for sm_90a) takes both sums from its
 fp32 accumulator while the output tile is still on chip, so the activation
-is never read again for statistics.
+is never read again for statistics.  It loads its tiles by TMA, multiplies
+with ``wgmma`` and stores ``y`` by TMA, one persistent block per SM.
 
 :func:`matmul_bn_stats` sends CUDA tensors to that kernel and CPU tensors to
 :func:`matmul_bn_stats_reference`, its plain PyTorch version.  A CUDA tensor
@@ -28,6 +29,17 @@ from . import build
 
 #: Number of times the CUDA kernel has been launched in this process.
 LAUNCHES = 0
+#: Rows per row block of the kernel's statistics partials (``BM`` in
+#: ``csrc/matmul_bn_stats.cu``, checked against it when the library loads):
+#: the wrapper sums ``ceil(M / BLOCK_M)`` partial rows per column.
+BLOCK_M = 128
+
+
+def block_n(n: int) -> int:
+    """Columns per output tile at ``N``: 64 if that covers ``N``, else 128.
+    A copy of ``block_n`` in the CUDA source, checked against it when the
+    library loads."""
+    return 64 if n <= 64 else 128
 
 
 def matmul_bn_stats_reference(x: torch.Tensor, w: torch.Tensor
@@ -48,10 +60,20 @@ def _kernel():
     fn.restype = ctypes.c_int
     lib.hvd_matmul_bn_stats_block_m.argtypes = []
     lib.hvd_matmul_bn_stats_block_m.restype = ctypes.c_int
+    lib.hvd_matmul_bn_stats_block_n.argtypes = [ctypes.c_int]
+    lib.hvd_matmul_bn_stats_block_n.restype = ctypes.c_int
     lib.hvd_matmul_bn_stats_max_m.argtypes = []
     lib.hvd_matmul_bn_stats_max_m.restype = ctypes.c_longlong
-    return (fn, lib.hvd_matmul_bn_stats_block_m(),
-            lib.hvd_matmul_bn_stats_max_m())
+    if lib.hvd_matmul_bn_stats_block_m() != BLOCK_M:
+        raise RuntimeError(f"matmul_bn_stats: the CUDA source's row block is "
+                           f"{lib.hvd_matmul_bn_stats_block_m()}, the "
+                           f"wrapper's {BLOCK_M}")
+    for n in (8, 64, 72, 128, 136, 200, 256, 2048):
+        if lib.hvd_matmul_bn_stats_block_n(n) != block_n(n):
+            raise RuntimeError(f"matmul_bn_stats: the CUDA source's tile at "
+                               f"N={n} is {lib.hvd_matmul_bn_stats_block_n(n)} "
+                               f"columns, the wrapper's {block_n(n)}")
+    return fn, BLOCK_M, lib.hvd_matmul_bn_stats_max_m()
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

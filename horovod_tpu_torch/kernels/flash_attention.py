@@ -5,9 +5,8 @@ Counterpart of ``_scaled_dot_attention`` (``horovod_tpu/models/transformer.py``
 that it reaches (``jax.experimental.pallas.ops.tpu.flash_attention``: the
 forward ``_flash_attention_impl``, ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``).  The kernels are CUDA C++ for sm_90a
-(``csrc/flash_attention.cu``; the forward and dK/dV kernels load their tiles
-by TMA and multiply with ``wgmma``); layout is the JAX package's
-``[b, s, h, d]``.
+(``csrc/flash_attention.cu``; each loads its tiles by TMA and multiplies
+with ``wgmma``); layout is the JAX package's ``[b, s, h, d]``.
 
 :func:`flash_attention` sends CPU tensors to :func:`attention_reference` and
 :func:`attention_bwd_reference`, the plain versions, and CUDA tensors to the
@@ -39,6 +38,10 @@ FWD_TILES = {64: (128, 128), 128: (128, 128)}
 #: tile), a copy of ``DkvPlan``.  The block loops over q tiles in order,
 #: from the q tile holding its first key when causal, else from 0.
 DKV_TILES = {64: (128, 64), 128: (128, 32)}
+#: Tiles of the dQ kernel by head_dim: (queries per work item, keys per k
+#: tile), a copy of ``DqPlan``.  A work item loops over k tiles in order
+#: from 0, to the tile holding its last query when causal.
+DQ_TILES = {64: (128, 128), 128: (128, 64)}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,12 +143,12 @@ def _kernels():
     lib.hvd_flash_tiles.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.hvd_flash_tiles.restype = ctypes.c_int
     for d in HEAD_DIMS:
-        tiles = (ctypes.c_int * 4)()
-        if lib.hvd_flash_tiles(d, tiles) != 0 or \
-                tuple(tiles) != FWD_TILES[d] + DKV_TILES[d]:
+        tiles = (ctypes.c_int * 6)()
+        want = FWD_TILES[d] + DKV_TILES[d] + DQ_TILES[d]
+        if lib.hvd_flash_tiles(d, tiles) != 0 or tuple(tiles) != want:
             raise RuntimeError(f"flash_attention: tiles of the CUDA source at "
                                f"head_dim {d} are {tuple(tiles)}, the wrapper's "
-                               f"{FWD_TILES[d] + DKV_TILES[d]}")
+                               f"{want}")
     fns = {}
     for name in LAUNCHES:
         fn = getattr(lib, f"hvd_{name}_bf16")
