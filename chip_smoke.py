@@ -14,10 +14,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    instance of the three flash kernels and of ``matmul_bn_stats`` must hold
    both.
 3. ResNet kernels: ``matmul_bn_stats`` at every distinct ResNet-50 shape of
-   the main path (batch 128, 224x224) and two ragged shapes, against its
-   plain PyTorch version on the same bf16 inputs, with the same bits on a
-   second launch; times the kernel, the plain version and one library
-   yardstick; computes each shape's bound.
+   the np=1 main path (batch 128, 224x224), of the np=2 path (64 images
+   per rank) and at four ragged shapes, against its plain PyTorch version
+   on the same bf16 inputs, with the same bits on a second launch; at the
+   np=1 shapes, times the kernel, the plain version and one library
+   yardstick, and computes each shape's bound.
 4. ResNet reference: a fused ResNet at ResNet-50's four stage widths in bf16
    on the card (kernel) against the same weights in fp32 on the CPU (plain
    version), on a small input.
@@ -42,27 +43,58 @@ Phases, in order; any failure raises and the exit code is not 0:
    (the tokens are the labels, as in ``benchmarks/bert_bench.py``).
    Asserts a finite loss, 24 launches of each flash kernel per step, and
    292 gradients reduced by ``CudaAllreduce`` each step.
+9. NCCL plane, one rank: a one-rank NCCL group in this process drives
+   ``NcclAllreduce.execute`` (the op the size > 1 chain registers for
+   ``HOROVOD_DATA_PLANE=nccl``) on fused bf16, fp16, fp32 and int32
+   responses with prescale 0.5 and postscale 2.0, against the plain
+   arithmetic: the same bits.  Then ``HOROVOD_DATA_PLANE=nccl`` at np=2 on
+   this one card must fail with the runtime's own message.
+10. ResNet-50 at np=2: ``python -m horovod_tpu_torch.runner.launch -np 2``
+    on this one card (both ranks ``device="cuda:0"``, the host plane),
+    ResNet-50 (bf16, ``fuse_conv1x1_bn=True``, 224x224) at 64 images per
+    rank (the np=1 path's global 128), 3 steps through
+    ``hvd.DistributedOptimizer``, each rank on its shard of one seeded
+    batch.  Asserts on each rank and step: 36 kernel launches, 161
+    allreduced gradients, a finite loss; the parameters' hash the same on
+    both ranks; for three parameters (the stem conv, the first fused 1x1
+    conv, the fc layer) the applied gradient equal on both ranks and
+    within ``NP2_GRAD_REL_RMS`` of the mean of both ranks' local gradients
+    (a plain backward on the same shard), while the same mean summed in
+    bf16 (a narrow plane, the control) lies outside it.  A worker that
+    fails fails the run.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --worker np2-resnet DIR`` and ``--worker nccl-np2``
+are the launched workers of phases 10 and 9.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.backend import cuda as cuda_backend
+from horovod_tpu_torch.backend import host as host_backend
+from horovod_tpu_torch.common.topology import ProcessTopology
+from horovod_tpu_torch.core.messages import DataType, Response
+from horovod_tpu_torch.core.tensor_queue import TensorTableEntry
 from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
 from horovod_tpu_torch.models import resnet, transformer
@@ -82,21 +114,29 @@ LAUNCHES_PER_STEP = 36
 # reaches (jax 0.9.0); its three pallas_call kernels are ported.
 FA_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
-# (M, K, N) -> launches per forward on the main path, ResNet-50 at
-# batch 128, 224x224; M = batch * H * W of the layer's output.
-_S1, _S2, _S3, _S4 = (BATCH * s * s for s in (56, 28, 14, 7))
-MAIN_PATH_SHAPES = {
-    (_S1, 64, 64): 1, (_S1, 64, 256): 4, (_S1, 256, 64): 2,
-    (_S1, 256, 128): 1, (_S2, 128, 512): 4, (_S2, 256, 512): 1,
-    (_S2, 512, 128): 3,
-    (_S2, 512, 256): 1, (_S3, 256, 1024): 6, (_S3, 512, 1024): 1,
-    (_S3, 1024, 256): 5,
-    (_S3, 1024, 512): 1, (_S4, 512, 2048): 3, (_S4, 1024, 2048): 1,
-    (_S4, 2048, 512): 2,
-}
+
+
+def resnet50_shapes(batch: int) -> dict:
+    """(M, K, N) -> launches per forward of ResNet-50 at ``batch`` images
+    of 224x224; M = batch * H * W of the layer's output."""
+    s1, s2, s3, s4 = (batch * s * s for s in (56, 28, 14, 7))
+    return {
+        (s1, 64, 64): 1, (s1, 64, 256): 4, (s1, 256, 64): 2,
+        (s1, 256, 128): 1, (s2, 128, 512): 4, (s2, 256, 512): 1,
+        (s2, 512, 128): 3,
+        (s2, 512, 256): 1, (s3, 256, 1024): 6, (s3, 512, 1024): 1,
+        (s3, 1024, 256): 5,
+        (s3, 1024, 512): 1, (s4, 512, 2048): 3, (s4, 1024, 2048): 1,
+        (s4, 2048, 512): 2,
+    }
+
+
+MAIN_PATH_SHAPES = resnet50_shapes(BATCH)
 # Ragged: M not a multiple of the 128-row tile, K = 64; N = 200 is not a
-# multiple of the 128-column tile either.
-RAGGED_SHAPES = [(12289, 64, 64), (1000, 64, 200)]
+# multiple of the 128-column tile either.  The last two have K or N not a
+# multiple of 8: the wrapper zero-pads them and slices the outputs back.
+RAGGED_SHAPES = [(12289, 64, 64), (1000, 64, 200), (1000, 60, 200),
+                 (37, 64, 12)]
 
 # Tolerances of the kernel against its plain version (same bf16 inputs):
 # y within 2 bf16 ulps, the ulp taken at max(|y_ref|, 2^-8 max|y_ref|) so
@@ -155,6 +195,26 @@ GRAD_REL_RMS = 1e-2
 # limits are twice that; a wrong kernel, mask or layout gives O(1).
 TF_LOGITS_REL_RMS = 0.02
 TF_GRAD_REL_RMS = 0.02
+
+# ResNet-50 at np=2 on the one card, through the launcher and the host plane.
+NP2_BATCH = 64          # per rank: the np=1 path's global batch of 128
+# Each rank's B8 shapes; at 7x7, M = 3136 leaves a half-full last row tile.
+NP2_SHAPES = resnet50_shapes(NP2_BATCH)
+NP2_STEPS = 3
+NP2_PARAMS = 161
+NP2_WATCHED = ("conv_init.kernel", "BottleneckBlock_0.FusedConv1x1BN_0.kernel",
+               "Dense_0.kernel")
+# Applied gradient against the mean of both ranks' local gradients, taken by
+# a second forward and backward on the same shard (cuDNN deterministic, so
+# both backwards give the same bits): relative RMS.  The local gradients
+# are bf16 values held in fp32 (bf16 compute, fp32 parameters), so the
+# plane's fp32 sum of two of them is exact unless their exponents are more
+# than 16 apart, and the halving is exact: the widened plane reads 0, or
+# at most ~2^-24.  A plane that carried or summed them in bf16 reads about
+# 2^-9 (the control in ``phase_np2_resnet``), so the limit lies between.
+NP2_GRAD_REL_RMS = 1e-6
+LAUNCH_TIMEOUT = 300
+REPO = Path(__file__).resolve().parent
 
 
 def card() -> str:
@@ -274,11 +334,13 @@ def phase_kernels() -> list:
         row["launches_per_step"] = per_step
         rows.append(row)
         print("kernel", json.dumps(row), flush=True)
-    for m, k, n in RAGGED_SHAPES:
+    # The np=2 path's shapes, checked but not timed.
+    for m, k, n in [*NP2_SHAPES, *RAGGED_SHAPES]:
         row = check_kernel_shape(m, k, n, gen, block_m, timed=False)
         rows.append(row)
         print("kernel", json.dumps(row), flush=True)
     assert sum(MAIN_PATH_SHAPES.values()) == LAUNCHES_PER_STEP
+    assert sum(NP2_SHAPES.values()) == LAUNCHES_PER_STEP
     return rows
 
 
@@ -567,6 +629,230 @@ def phase_bert_main_path() -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+def phase_nccl_one_rank() -> dict:
+    """``NcclAllreduce.execute`` on a one-rank NCCL group: the fused buffer,
+    the widening, the scales and the unfuse on the card, against the plain
+    arithmetic on the same inputs."""
+    dev = torch.device("cuda", 0)
+    # Built as the runtime builds its device plane's group.
+    group = cuda_backend.nccl_group(dist.HashStore(), 0, 1, LAUNCH_TIMEOUT)
+    try:
+        # Driven directly: enabled() would ask for size > 1.
+        op = cuda_backend.NcclAllreduce(ProcessTopology(), dev, group)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        stream = torch.cuda.current_stream(dev)
+        checked = {}
+        for dtype in (torch.bfloat16, torch.float16, torch.float32,
+                      torch.int32):
+            shapes = [(1000,), (37, 3), (4096, 64)]
+            if dtype == torch.int32:
+                tensors = [torch.randint(-2**20, 2**20, s, device=dev,
+                                         generator=gen, dtype=dtype)
+                           for s in shapes]
+            else:
+                tensors = [(torch.randn(s, device=dev, generator=gen) * 10)
+                           .to(dtype) for s in shapes]
+            entries = []
+            for i, t in enumerate(tensors):
+                ready = torch.cuda.Event()
+                ready.record(stream)
+                entries.append(TensorTableEntry(
+                    f"{dtype}.{i}", tensor=t, device=0, prescale_factor=0.5,
+                    postscale_factor=2.0, ready_event=ready,
+                    ready_stream=stream))
+            response = Response(
+                tensor_names=[e.tensor_name for e in entries],
+                tensor_type=DataType.from_torch(dtype),
+                tensor_sizes=[t.numel() for t in tensors], devices=[0],
+                prescale_factor=0.5, postscale_factor=2.0)
+            status = op.execute(response, entries)
+            assert status.ok and status.pending, status
+            entries[0].done_event.synchronize()
+            for e in entries:
+                plain = (cuda_backend.widened(e.tensor) * 0.5 * 2.0) \
+                    .to(dtype)
+                if not torch.equal(e.output, plain):
+                    raise AssertionError(
+                        f"NcclAllreduce {dtype} {tuple(e.tensor.shape)}: "
+                        f"max |err| "
+                        f"{(e.output.double() - plain.double()).abs().max()}")
+            checked[str(dtype)] = len(entries)
+        return checked
+    finally:
+        group.shutdown()
+
+
+def launch_job(np_: int, worker: list, timeout: float,
+               extra_env: dict = None):
+    """Runs this script's ``--worker`` mode through the port's launcher in
+    a session of its own, killed whole if it outlasts ``timeout``."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           str(np_), sys.executable, str(REPO / "chip_smoke.py"),
+           "--worker", *worker]
+    proc = subprocess.Popen(
+        cmd, cwd=str(REPO), text=True,
+        env={**os.environ, **(extra_env or {})}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"launch {worker} timed out after {timeout}s:"
+                             f"\n{out}\n{err}")
+    return proc.returncode, out, err
+
+
+def phase_nccl_np2_refused() -> str:
+    """``HOROVOD_DATA_PLANE=nccl`` at np=2 on one card: NCCL cannot hold two
+    ranks of one communicator on one device, so the job must end with the
+    runtime's message, neither hanging nor falling back to the host plane."""
+    t0 = time.perf_counter()
+    code, out, err = launch_job(2, ["nccl-np2"], LAUNCH_TIMEOUT,
+                                {"HOROVOD_DATA_PLANE": "nccl"})
+    want = "HOROVOD_DATA_PLANE=nccl needs one card per rank"
+    if code == 0 or want not in err or "NCCL_PLANE_UP" in out:
+        raise AssertionError(f"nccl at np=2 on one card: exit {code}, "
+                             f"expected the runtime's refusal:\n{out}\n{err}")
+    line = next(l for l in err.splitlines() if want in l)
+    return f"exit {code} after {time.perf_counter() - t0:.1f}s: {line.strip()}"
+
+
+def nccl_np2_worker() -> None:
+    hvd.init(device="cuda:0")
+    print("NCCL_PLANE_UP", hvd.rank(), flush=True)
+
+
+def np2_worker(out_dir: str) -> None:
+    """One rank of the np=2 ResNet-50 job: 3 steps, with the counts, times,
+    hashes and watched gradients of each written to ``out_dir``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The local gradients' second backward gives the applied one's bits.
+    torch.backends.cudnn.deterministic = True
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    assert size == 2 and dev == torch.device("cuda", 0), (size, dev)
+    model = resnet.ResNet50(
+        num_classes=1000, dtype=torch.bfloat16, fuse_conv1x1_bn=True,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    params = list(model.named_parameters())
+    watched = [p for name, p in params if name in NP2_WATCHED]
+    assert len(params) == NP2_PARAMS and len(watched) == len(NP2_WATCHED)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(size * NP2_BATCH, IMAGE, IMAGE, 3, device=dev,
+                    generator=gen)
+    y = torch.randint(0, 1000, (size * NP2_BATCH,), device=dev, generator=gen)
+    shard = slice(rank * NP2_BATCH, (rank + 1) * NP2_BATCH)
+    batch = {"x": x[shard].contiguous(), "y": y[shard].contiguous()}
+    del x, y
+    # Wall time the background thread spends in the host plane's op (its
+    # copies wait for the gradients' ready events, so backward overlaps).
+    op_seconds = [0.0]
+    execute = host_backend.HostAllreduce.execute
+
+    def timed_execute(self, response, entries):
+        t = time.perf_counter()
+        try:
+            return execute(self, response, entries)
+        finally:
+            op_seconds[0] += time.perf_counter() - t
+
+    host_backend.HostAllreduce.execute = timed_execute
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for _ in range(NP2_STEPS):
+        model.train()
+        local = torch.autograd.grad(
+            cross_entropy_loss(model(batch["x"]), batch["y"]), watched)
+        local = [g.float().cpu() for g in local]
+        torch.cuda.synchronize()
+        launches = conv_bn_stats.LAUNCHES
+        counts = dict(cuda_backend.stats)
+        op_seconds[0] = 0.0
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        steps.append({
+            "loss": float(loss), "ms": ms, "plane_ms": 1e3 * op_seconds[0],
+            "launches": conv_bn_stats.LAUNCHES - launches,
+            **{k: cuda_backend.stats[k] - counts[k] for k in counts},
+            "hash": hashlib.sha256(b"".join(
+                p.detach().float().cpu().numpy().tobytes()
+                for _, p in params)).hexdigest(),
+            "local": local,
+            "applied": [p.grad.float().cpu() for p in watched]})
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    hvd.shutdown()
+    torch.save({"steps": steps, "peak_mem_gb": peak},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    print("NP2_DONE", rank, flush=True)
+
+
+def phase_np2_resnet(card_line: str) -> dict:
+    # Inside the checkout (``_runs/`` is gitignored), deleted afterwards.
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_resnet.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(2, ["np2-resnet", out_dir],
+                                    LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 ResNet-50 job failed with exit "
+                                 f"{code}:\n{out}\n{err}")
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+    # The control: the same mean summed in bf16, as a narrow plane would.
+    worst, narrowest = 0.0, math.inf
+    for step in range(NP2_STEPS):
+        s0, s1 = (r["steps"][step] for r in ranks)
+        for r, s in enumerate((s0, s1)):
+            assert s["launches"] == LAUNCHES_PER_STEP, (r, step, s)
+            assert s["allreduce_tensors"] == NP2_PARAMS, (r, step, s)
+            assert math.isfinite(s["loss"]), (r, step, s["loss"])
+        if s0["hash"] != s1["hash"]:
+            raise AssertionError(f"step {step}: parameters differ across "
+                                 f"ranks ({s0['hash']} vs {s1['hash']})")
+        for name, a0, a1, l0, l1 in zip(NP2_WATCHED, s0["applied"],
+                                        s1["applied"], s0["local"],
+                                        s1["local"]):
+            assert torch.equal(a0, a1), (step, name)
+            mean = (l0.double() + l1.double()) / 2
+            err = rel_rms(a0, mean)
+            narrow = rel_rms((l0.bfloat16() + l1.bfloat16()) / 2, mean)
+            worst, narrowest = max(worst, err), min(narrowest, narrow)
+            if err > NP2_GRAD_REL_RMS or narrow <= NP2_GRAD_REL_RMS:
+                raise AssertionError(
+                    f"step {step} {name}: applied gradient vs the mean of "
+                    f"the local ones, relative RMS {err!r} (limit "
+                    f"{NP2_GRAD_REL_RMS}); the bf16 sum's {narrow!r} must "
+                    f"exceed the limit")
+    summary = {
+        "seconds": seconds, "worst_grad_rel_rms": worst,
+        "narrow_control_rel_rms": narrowest,
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "per_rank": [{k: [s[k] for s in r["steps"]] for k in (
+            "loss", "ms", "plane_ms", "launches", "allreduce_tensors",
+            "allreduce_responses")} for r in ranks]}
+    for r, per in enumerate(summary["per_rank"]):
+        print(f"np2 main path: rank {r} ResNet-50 batch {NP2_BATCH} "
+              f"{IMAGE}x{IMAGE} bf16, host plane, ms/step "
+              f"{[round(v, 1) for v in per['ms']]} (in the plane's op "
+              f"{[round(v, 1) for v in per['plane_ms']]}), losses "
+              f"{[round(v, 4) for v in per['loss']]}, kernel launches "
+              f"{per['launches']}, allreduced tensors "
+              f"{per['allreduce_tensors']} in "
+              f"{per['allreduce_responses']} responses per step, peak "
+              f"{summary['peak_mem_gb'][r]:.1f} GB [{card_line}]",
+              flush=True)
+    return summary
+
+
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
     for key in fa.LAUNCHES:
@@ -580,6 +866,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--worker"]:
+        if sys.argv[2:3] == ["np2-resnet"]:
+            np2_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["nccl-np2"]:
+            nccl_np2_worker()
+        else:
+            raise SystemExit(f"unknown worker {sys.argv[2:]}")
+        return 0
     card_line = card()
     print(card_line, flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
@@ -655,6 +949,24 @@ def main() -> int:
           f"({bert['n_params']} params x {bert['steps']} steps) in "
           f"{cuda_backend.stats['allreduce_responses']} fused responses "
           f"[{card_line}]", flush=True)
+
+    torch.cuda.empty_cache()
+    nccl = phase_nccl_one_rank()
+    print(f"nccl plane, one rank: NcclAllreduce bit-exact against the plain "
+          f"arithmetic for {nccl} entries", flush=True)
+    print(f"nccl plane at np=2 on one card refused: "
+          f"{phase_nccl_np2_refused()}", flush=True)
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    np2 = phase_np2_resnet(card_line)
+    print(f"np2 main path: 2 ranks x {NP2_STEPS} steps in "
+          f"{np2['seconds']:.1f}s (launch included), parameters identical "
+          f"across ranks after every step, applied gradients within "
+          f"{np2['worst_grad_rel_rms']!r} relative RMS of the mean of the "
+          f"local ones (limit {NP2_GRAD_REL_RMS}; the bf16-summed control "
+          f"at least {np2['narrow_control_rel_rms']!r}) [{card_line}]",
+          flush=True)
 
     timed = [r for r in rows if "ms" in r]
 

@@ -43,8 +43,10 @@ def init(device: Union[None, str, torch.device] = None,
          topology: Optional[ProcessTopology] = None) -> None:
     """Initialize the runtime (``hvd.init()`` → ``horovod_init``,
     ``operations.cc:752``): topology from the launcher's environment (or
-    given), background thread up.  Size > 1 raises until the transport
-    slice lands."""
+    given), background thread up, and at size > 1 the process groups
+    joined.  ``device`` defaults to ``cuda:<local_rank>``; an explicit one
+    is honoured, which is how several ranks share one card
+    (``device="cuda:0"``)."""
     state = global_state()
     if state.initialized.is_set():
         return

@@ -2,7 +2,7 @@
 
 Same names and defaults as ``horovod_tpu/common/env.py`` (the reference's
 ``HOROVOD_*`` variables, ``horovod/common/common.h:64-91``), limited to what
-the one-process runtime uses.
+the port's runtime uses.
 """
 
 from __future__ import annotations
@@ -18,12 +18,24 @@ HOROVOD_CROSS_RANK = "HOROVOD_CROSS_RANK"
 HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
 HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
 
+# -- rendezvous / control plane (set by the launcher) --
+HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+# Bring-up budget in seconds: store connection, the control group's
+# rendezvous, and the timeout of every collective on the groups.
+HOROVOD_MESH_STARTUP_TIMEOUT = "HOROVOD_MESH_STARTUP_TIMEOUT"
+
 # -- runtime --
 HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"  # bytes
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"  # float ms
 HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+# Where the cross-rank allreduce runs at size > 1: "cpu" (or "tcp", the JAX
+# package's name for it), the default, sums on the host over the gloo
+# control group; "nccl", the counterpart of the JAX package's "xla", sums
+# on the card over an NCCL group.
+HOROVOD_DATA_PLANE = "HOROVOD_DATA_PLANE"
 
 # -- logging --
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
@@ -33,6 +45,10 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_STALL_CHECK_TIME_SECONDS = 60
 DEFAULT_STALL_SHUTDOWN_TIME_SECONDS = 0  # disabled
+DEFAULT_MESH_STARTUP_TIMEOUT = 60.0
+
+PLANE_HOST = "cpu"
+PLANE_NCCL = "nccl"
 
 
 def get_int(name: str, default: int) -> int:
@@ -58,3 +74,17 @@ def get_bool(name: str, default: bool = False) -> bool:
 
 def get_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
+
+
+def data_plane() -> str:
+    """``HOROVOD_DATA_PLANE`` as :data:`PLANE_HOST` or :data:`PLANE_NCCL`.
+    Any other value raises: the JAX package's ``auto`` (which falls back
+    silently) and ``xla`` do not exist here."""
+    plane = get_str(HOROVOD_DATA_PLANE).strip().lower() or PLANE_HOST
+    if plane in (PLANE_HOST, "tcp"):
+        return PLANE_HOST
+    if plane == PLANE_NCCL:
+        return PLANE_NCCL
+    raise ValueError(
+        f"{HOROVOD_DATA_PLANE}={plane!r}: expected {PLANE_HOST!r} (or "
+        f"'tcp'), the host plane, or {PLANE_NCCL!r}, the device plane")

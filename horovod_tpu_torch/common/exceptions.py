@@ -11,3 +11,9 @@ class DuplicateNameError(ValueError):
     """A tensor with the same name is already in flight.
 
     Reference: ``DUPLICATE_NAME_ERROR`` status (``common.h:164-167``)."""
+
+
+class TruncatedFrameError(HorovodInternalError):
+    """A control-plane frame ended mid-field while being parsed
+    (``core/messages.py`` ``Reader``): its declared lengths point past the
+    end of the buffer."""

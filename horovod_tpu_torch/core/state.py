@@ -12,8 +12,14 @@ Device work completes on a finalizer thread: an op that queued CUDA work
 returns ``Status.in_progress()`` and the finalizer waits on the op's CUDA
 event before firing the entries' callbacks (reference
 ``gpu_operations.h:98-127``), so the loop moves straight on to the next
-cycle.  This runtime runs one process; several ranks need the transport
-slice (ROADMAP.md).
+cycle.
+
+At size > 1 the runtime owns its groups: a gloo control group (negotiation
+and the host plane) and, for ``HOROVOD_DATA_PLANE=nccl``, an NCCL group,
+both built on the launcher's store and called through their own methods.
+torch.distributed's default process group is never touched, so user code
+may initialize it before ``hvd.init()`` and keep it after
+``hvd.shutdown()``.
 """
 
 from __future__ import annotations
@@ -25,12 +31,16 @@ import time
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from ..backend.cuda import CudaAllreduce
+from ..backend.cuda import CudaAllreduce, NcclAllreduce, nccl_group
+from ..backend.host import HostAllreduce
 from ..common import env as env_mod
 from ..common.exceptions import HorovodInternalError
 from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology, from_env
+from ..transport.control import ControlPlane, gloo_group
+from ..transport.store import Store
 from .controller import Controller
 from .messages import DataType, Request, RequestType, Response, ResponseType
 from .operation_manager import OperationManager
@@ -58,6 +68,11 @@ class HorovodGlobalState:
         self._last_cycle_had_work = False
         self._finalizer_queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._finalizer: Optional[threading.Thread] = None
+        # Size > 1: the data plane, the gloo control group and the NCCL
+        # group of the device plane.
+        self.plane = env_mod.PLANE_HOST
+        self.control_group = None
+        self.nccl_group = None
 
     # ------------------------------------------------------------------
 
@@ -69,10 +84,7 @@ class HorovodGlobalState:
             return
         topo = topology or from_env()
         if topo.size > 1:
-            raise HorovodInternalError(
-                f"size {topo.size} requested, but this runtime runs one "
-                "process: cross-rank negotiation and the NCCL allreduce "
-                "arrive with the transport slice (ROADMAP.md, queue A)")
+            self.plane = self._check_cross_rank(device)
         self.topo = topo
         self.device = device
         self.cycle_time_ms = env_mod.get_float(
@@ -90,22 +102,108 @@ class HorovodGlobalState:
             raise HorovodInternalError(f"initialization failed: {err}") from err
         atexit.register(self.shutdown)
 
+    @staticmethod
+    def _check_cross_rank(device: torch.device) -> str:
+        """What size > 1 needs before anything connects: the launcher's
+        rendezvous address and a data plane this rank can run.  Returns the
+        plane.  Nothing falls back: an unmet request raises."""
+        addr = env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR)
+        port = env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0)
+        if not addr or not port:
+            raise HorovodInternalError(
+                "size > 1 requires the launcher's rendezvous store "
+                f"({env_mod.HOROVOD_RENDEZVOUS_ADDR} and "
+                f"{env_mod.HOROVOD_RENDEZVOUS_PORT}; run the job with "
+                "python -m horovod_tpu_torch.runner.launch -np N ...)")
+        try:
+            plane = env_mod.data_plane()
+        except ValueError as e:
+            raise HorovodInternalError(str(e)) from None
+        if plane == env_mod.PLANE_NCCL:
+            if device.type != "cuda":
+                raise HorovodInternalError(
+                    f"{env_mod.HOROVOD_DATA_PLANE}=nccl needs the runtime on "
+                    f"a card, but it runs on {device}")
+            if not dist.is_nccl_available():
+                raise HorovodInternalError(
+                    f"{env_mod.HOROVOD_DATA_PLANE}=nccl, but this torch has "
+                    "no NCCL")
+        return plane
+
+    def _connect(self) -> None:
+        """Size > 1: store, check-in, the gloo control group and, for the
+        device plane, the NCCL group (``_build_transport``)."""
+        topo = self.topo
+        timeout = env_mod.get_float(env_mod.HOROVOD_MESH_STARTUP_TIMEOUT,
+                                    env_mod.DEFAULT_MESH_STARTUP_TIMEOUT)
+        # The membership epoch scopes the groups' store keys; it stays 0
+        # until elastic re-init (ROADMAP A6) bumps it.
+        epoch = 0
+        store = Store.connect(env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR),
+                              env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
+                              timeout)
+        store.set("worker_started", str(topo.rank), b"1")
+        self.control_group = gloo_group(store.group_store("control", epoch),
+                                        topo.rank, topo.size, timeout)
+        if self.plane != env_mod.PLANE_NCCL:
+            return
+        scope = f"cards.{epoch}"
+        store.set(scope, str(topo.rank),
+                  str(torch.cuda.get_device_properties(self.device).uuid)
+                  .encode())
+        cards = [v.decode() for v in store.wait(
+            scope, [str(r) for r in range(topo.size)], timeout).values()]
+        for r, card in enumerate(cards):
+            if cards.index(card) != r:
+                raise HorovodInternalError(
+                    f"{env_mod.HOROVOD_DATA_PLANE}=nccl needs one card per "
+                    f"rank, but ranks {cards.index(card)} and {r} share "
+                    f"card {card}: NCCL cannot hold two ranks of one "
+                    f"communicator on one device.  Use "
+                    f"{env_mod.HOROVOD_DATA_PLANE}=cpu, the host plane")
+        self.nccl_group = nccl_group(store.group_store("nccl", epoch),
+                                     topo.rank, topo.size, timeout)
+        # Bring the communicator up now: a fault shows at init, not in the
+        # first step.
+        probe = torch.zeros(1, device=self.device)
+        self.nccl_group.allreduce([probe]).wait()
+        torch.cuda.synchronize(self.device)
+
+    def _destroy_groups(self) -> None:
+        for group in (self.nccl_group, self.control_group):
+            if group is not None:
+                group.shutdown()
+        self.nccl_group = self.control_group = None
+
     def _build(self) -> None:
-        """The one-process part of ``_build_transport`` and
-        ``_register_default_ops``: controller, op chain, finalizer."""
+        """``_build_transport`` and ``_register_default_ops``: the groups
+        (size > 1), the controller, the op chain, the finalizer."""
+        topo = self.topo
+        if topo.size > 1:
+            self._connect()
         fusion = env_mod.get_int(
             env_mod.HOROVOD_FUSION_THRESHOLD, env_mod.DEFAULT_FUSION_THRESHOLD)
         stall_secs = 0 if env_mod.get_bool(env_mod.HOROVOD_STALL_CHECK_DISABLE) \
             else env_mod.get_float(env_mod.HOROVOD_STALL_CHECK_TIME_SECONDS,
                                    env_mod.DEFAULT_STALL_CHECK_TIME_SECONDS)
         self.controller = Controller(
-            self.topo, fusion_threshold_bytes=fusion,
+            topo, ControlPlane(topo.rank, topo.size, self.control_group)
+            if topo.size > 1 else None,
+            fusion_threshold_bytes=fusion,
             stall_warning_secs=stall_secs,
             stall_shutdown_secs=env_mod.get_float(
                 env_mod.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS,
                 env_mod.DEFAULT_STALL_SHUTDOWN_TIME_SECONDS))
+        # One op per size and plane; each enabled() reads only the size,
+        # so every rank makes the same choice.
         self.op_manager.register(ResponseType.ALLREDUCE,
-                                 CudaAllreduce(self.topo, self.device))
+                                 CudaAllreduce(topo, self.device))
+        if topo.size > 1:
+            self.op_manager.register(
+                ResponseType.ALLREDUCE,
+                NcclAllreduce(topo, self.device, self.nccl_group)
+                if self.plane == env_mod.PLANE_NCCL
+                else HostAllreduce(topo, self.device, self.control_group))
         self._finalizer = threading.Thread(
             target=self._finalizer_loop, name="horovod-finalizer", daemon=True)
         self._finalizer.start()
@@ -119,6 +217,7 @@ class HorovodGlobalState:
             self._build()
         except BaseException as e:  # noqa: BLE001 — reported by initialize()
             self.init_error = e
+            self._destroy_groups()
             self.initialized.set()
             return
         self.initialized.set()
@@ -146,7 +245,10 @@ class HorovodGlobalState:
             # before shutdown is declared done.
             self._finalizer_queue.put(None)
             self._finalizer.join(timeout=60)
-            self.shutdown_complete.set()
+            try:
+                self._destroy_groups()
+            finally:
+                self.shutdown_complete.set()
 
     def _run_loop_once(self) -> bool:
         """One cycle (``RunLoopOnce``, ``operations.cc:595-689``): negotiate,

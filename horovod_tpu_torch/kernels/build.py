@@ -7,11 +7,19 @@ headers it may include (``csrc/*.cuh``) and the flags, so an edited source
 is rebuilt and a stale library is never loaded.
 Nothing is built at import time: the CPU tests import every module on a
 machine without ``nvcc``.
+
+Several processes may reach a kernel's first use at once (the ranks of a
+job on one host).  Each build holds an exclusive lock on
+``_build/<library>.lock`` while it checks for the library and compiles it,
+so one process builds and the others wait and load its result; the library
+is written under a temporary name and renamed into place, so no process
+ever loads a half-written file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -65,6 +73,15 @@ def _compile(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        # Released when the file closes, also when the process dies.
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():     # another process built it while we waited
+            return out
+        return _run_nvcc(name, out)
+
+
+def _run_nvcc(name: str, out: Path) -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                       str(CSRC_DIR / f"{name}.cu")]

@@ -85,25 +85,52 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
             "the plain version)")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"matmul_bn_stats: the kernel takes bf16, got "
-                        f"x {x.dtype}, w {w.dtype}")
+                        f"x {x.dtype}, w {w.dtype}; a model in another "
+                        "dtype on the card takes the plain BatchNorm path: "
+                        "ResNet(fuse_conv1x1_bn=False)")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_bn_stats: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} are not [M,K] @ [K,N]")
     m, k = x.shape
     n = w.shape[1]
-    if m < 1 or k < 1 or n < 1 or k % 8 or n % 8:
+    if m < 1 or k < 1 or n < 1:
         raise ValueError(f"matmul_bn_stats: M={m}, K={k}, N={n}; the kernel "
-                         "takes M, K, N >= 1 with K and N multiples of 8")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("matmul_bn_stats: x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("matmul_bn_stats: x and w must be 16-byte aligned")
+                         "takes M, K, N >= 1")
+
+
+def pad_operands(x: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous operands with K and N zero-padded up to multiples of 8,
+    which the kernel's 16-byte rows need (the JAX kernel zero-pads M, K and
+    N to its blocks the same way, ``conv_bn_stats.py:97-101``).  Zero
+    columns of ``x`` and zero rows of ``w`` add nothing to ``y``; zero
+    columns of ``w`` give zero columns of ``y`` and zero statistics, which
+    :func:`unpad_outputs` drops."""
+    k, n = w.shape
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    if kp != k:
+        x = torch.nn.functional.pad(x, (0, kp - k))
+    if (kp, np_) != (k, n):
+        w = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    return x.contiguous(), w.contiguous()
+
+
+def unpad_outputs(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                  n: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first ``n`` columns of ``y`` and entries of the statistics."""
+    if y.shape[1] == n:
+        return y, s1, s2
+    return y[:, :n].contiguous(), s1[:n], s2[:n]
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global LAUNCHES
     _check(x, w)
+    n_out = w.shape[1]
+    x, w = pad_operands(x, w)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("matmul_bn_stats: x and w must be 16-byte aligned")
     fn, block_m, max_m = _kernel()
     m, k = x.shape
     n = w.shape[1]
@@ -124,7 +151,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor
                            f"cudaError {err}")
     LAUNCHES += 1
     s = partials.sum(1)
-    return y, s[0], s[1]
+    return unpad_outputs(y, s[0], s[1], n_out)
 
 
 def matmul_bn_stats(x: torch.Tensor, w: torch.Tensor
@@ -133,7 +160,7 @@ def matmul_bn_stats(x: torch.Tensor, w: torch.Tensor
 
     ``x``: ``[M, K]``, ``w``: ``[K, N]``.  Returns ``(y [M,N] in x.dtype,
     s1 [N] fp32, s2 [N] fp32)``.  CPU tensors take the plain version; CUDA
-    tensors the kernel (bf16 only), or this raises."""
+    tensors the kernel (bf16 only; any M, K and N), or this raises."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return matmul_bn_stats_reference(x, w)
     return _launch(x, w)

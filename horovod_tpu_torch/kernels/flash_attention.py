@@ -158,6 +158,11 @@ def _kernels():
     return fns
 
 
+#: What a model whose attention the kernels do not take uses instead.
+_EINSUM_HINT = ('a transformer in another dtype or head_dim runs the plain '
+                'einsum path: TransformerConfig(attention_impl="einsum")')
+
+
 def _check(*tensors: torch.Tensor) -> None:
     """Raise on anything the CUDA kernels do not take.  Each tensor is
     ``[b, s, h, d]`` with a contiguous, 16-byte aligned head dimension."""
@@ -169,7 +174,7 @@ def _check(*tensors: torch.Tensor) -> None:
             "tensors on one CUDA device")
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"flash_attention: the kernels take bf16, got "
-                        f"{[t.dtype for t in tensors]}")
+                        f"{[t.dtype for t in tensors]}; {_EINSUM_HINT}")
     if any(t.dim() != 4 or t.shape != q.shape for t in tensors):
         shapes = [tuple(t.shape) for t in tensors]
         raise ValueError(f"flash_attention: shapes {shapes} are not one "
@@ -177,7 +182,7 @@ def _check(*tensors: torch.Tensor) -> None:
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d}; the kernels take "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS}; {_EINSUM_HINT}")
     if min(b, s, h) < 1 or max(b, h) > 65535:
         raise ValueError(f"flash_attention: shape {(b, s, h, d)}; the "
                          "kernels take b, h in [1, 65535] and s >= 1")

@@ -19,10 +19,18 @@ Where torch's defaults differ from flax's, this module does what flax does:
   ``Embed.attend`` promotes both operands to the module's dtype), so the
   logits are bf16 on the card; the loss widens them to fp32.
 
-Attention ``"full"`` is
-:func:`~horovod_tpu_torch.kernels.flash_attention.flash_attention`: the CUDA
-kernels on the card, their plain versions on the CPU.  There is no
-switch between the two and no fallback.  The sequence-parallel modes
+Attention ``"full"`` has two implementations, chosen explicitly by
+``cfg.attention_impl``:
+
+- ``"flash"`` (the default):
+  :func:`~horovod_tpu_torch.kernels.flash_attention.flash_attention`, the
+  CUDA kernels on the card (bf16, head_dim 64 or 128; anything else raises
+  and names ``"einsum"``), their plain versions on the CPU;
+- ``"einsum"``: :func:`attention_einsum`, the reference's own default path
+  (``horovod_tpu/models/transformer.py:138-146``) in plain torch, for any
+  dtype and head_dim on either device.
+
+Nothing switches between them on its own.  The sequence-parallel modes
 (``"ring"``, ``"ulysses"``) arrive with the ``parallel/`` slice.
 """
 
@@ -60,6 +68,7 @@ class TransformerConfig:
     model_axis: str = AXIS_MODEL
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
+    attention_impl: str = "flash"     # flash | einsum
 
     @property
     def head_dim(self) -> int:
@@ -125,10 +134,32 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
+def attention_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, sm_scale: float) -> torch.Tensor:
+    """The reference's einsum attention over ``[b, s, h, d]``: fp32 scores,
+    scaled; a ``-inf`` causal mask; softmax; probabilities cast to
+    ``q.dtype``; the product with ``v`` in ``q.dtype``."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))      # [b, h, s, d]
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) \
+        * sm_scale
+    if causal:
+        s = q.shape[1]
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2)
+
+
+_ATTENTION_IMPLS = {"flash": flash_attention, "einsum": attention_einsum}
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.attention_impl not in _ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}; "
+                             f"expected one of {sorted(_ATTENTION_IMPLS)}")
         if cfg.attention in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention={cfg.attention!r} (sequence parallelism) arrives "
@@ -148,7 +179,8 @@ class Attention(nn.Module):
         # [b, s, 3h, dh] split on the head axis: q is features [0, h·dh),
         # then k, then v.  Strided views: the kernels read them in place.
         q, k, v = self.qkv(x).view(b, s, 3 * h, dh).split(h, dim=2)
-        out = flash_attention(q, k, v, cfg.causal, dh ** -0.5)
+        out = _ATTENTION_IMPLS[cfg.attention_impl](q, k, v, cfg.causal,
+                                                   dh ** -0.5)
         return self.out(out.reshape(b, s, h * dh))
 
 
@@ -209,5 +241,5 @@ class Transformer(nn.Module):
 
 
 __all__ = ["TransformerConfig", "bert_large_config", "gpt_small_config",
-           "tiny_config", "Dense", "LayerNorm", "Attention", "Block",
-           "Embed", "Transformer"]
+           "tiny_config", "Dense", "LayerNorm", "attention_einsum",
+           "Attention", "Block", "Embed", "Transformer"]

@@ -27,7 +27,12 @@ from horovod_tpu_torch.kernels import (
     MatmulBNStats,
     matmul_bn_stats,
 )
-from horovod_tpu_torch.kernels.conv_bn_stats import _check
+from horovod_tpu_torch.kernels.conv_bn_stats import (
+    _check,
+    matmul_bn_stats_reference,
+    pad_operands,
+    unpad_outputs,
+)
 
 from .torch_port import one_torch_thread  # noqa: F401  (autouse)
 
@@ -165,3 +170,37 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(x, w, err):
         _check(x, w)
     with pytest.raises(err):
         matmul_bn_stats(x, w)
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 60, 200), (37, 64, 12)])
+def test_ragged_k_and_n_are_padded_like_the_jax_kernel(m, k, n):
+    """The CUDA wrapper zero-pads K and N up to multiples of 8 and slices
+    the outputs back to N (fault C2).  The kernel computes what its plain
+    version computes on the padded operands: that, cut back, must equal the
+    JAX kernel on the ragged ones, and the padding must be exactly zero
+    wherever it could reach an output."""
+    x, w = _inputs(3, m, k, n)
+    xp, wp = pad_operands(torch.from_numpy(x), torch.from_numpy(w))
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert tuple(xp.shape) == (m, kp) and tuple(wp.shape) == (kp, np_)
+    assert xp.is_contiguous() and wp.is_contiguous()
+    assert not xp[:, k:].any() and not wp[k:].any() and not wp[:, n:].any()
+    y_p, s1_p, s2_p = matmul_bn_stats_reference(xp, wp)
+    assert not y_p[:, n:].any() and not s1_p[n:].any() and not s2_p[n:].any()
+    y, s1, s2 = unpad_outputs(y_p, s1_p, s2_p, n)
+    assert tuple(y.shape) == (m, n) and y.is_contiguous()
+    yj, s1j, s2j = jax_matmul_bn_stats(jnp.asarray(x), jnp.asarray(w),
+                                       128, 128, 128, True)
+    scale = np.float32(np.sqrt(m))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(s1.numpy() / scale, np.asarray(s1j) / scale,
+                               **TOL)
+    np.testing.assert_allclose(s2.numpy() / m, np.asarray(s2j) / m, **TOL)
+
+
+def test_aligned_operands_are_not_copied():
+    x, w = torch.zeros(16, 64), torch.zeros(64, 128)
+    xp, wp = pad_operands(x, w)
+    assert xp is x and wp is w
+    y, s1, s2 = torch.zeros(16, 128), torch.zeros(128), torch.zeros(128)
+    assert unpad_outputs(y, s1, s2, 128)[0] is y

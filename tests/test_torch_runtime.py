@@ -223,10 +223,16 @@ def test_init_without_device_needs_cuda():
 
 
 def test_init_refuses_more_than_one_process(monkeypatch):
+    """Size > 1 without the launcher's rendezvous store raises, naming the
+    two variables the launcher sets, and leaves nothing initialized."""
     hvd.shutdown()
     monkeypatch.setenv("HOROVOD_SIZE", "2")
     monkeypatch.setenv("HOROVOD_RANK", "0")
-    with pytest.raises(HorovodInternalError, match="transport slice"):
+    monkeypatch.delenv("HOROVOD_GLOO_RENDEZVOUS_ADDR", raising=False)
+    monkeypatch.delenv("HOROVOD_GLOO_RENDEZVOUS_PORT", raising=False)
+    with pytest.raises(HorovodInternalError,
+                       match="HOROVOD_GLOO_RENDEZVOUS_ADDR and "
+                             "HOROVOD_GLOO_RENDEZVOUS_PORT"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
 

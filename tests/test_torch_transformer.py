@@ -32,6 +32,7 @@ from horovod_tpu.models.training import (
 )
 from horovod_tpu_torch.backend import cuda as cuda_backend
 from horovod_tpu_torch.convert import from_flax
+from horovod_tpu_torch.kernels import flash_attention as fa
 from horovod_tpu_torch.models import transformer
 from horovod_tpu_torch.models.training import train_step
 
@@ -96,6 +97,10 @@ def test_logits_match_flax(dtype, causal):
 def test_two_adamw_steps_match_jax_train_step(runtime, causal):
     """``{'x': tokens, 'y': tokens}`` as ``benchmarks/bert_bench.py`` feeds
     BERT; every gradient goes through the runtime's allreduce."""
+    _two_adamw_steps(causal, "flash")
+
+
+def _two_adamw_steps(causal: bool, attention_impl: str) -> None:
     jcfg = jax_transformer.tiny_config(dtype=jnp.float32, causal=causal)
     jmodel = jax_transformer.Transformer(jcfg)
     tokens = _tokens(jcfg, seed=1)
@@ -106,7 +111,7 @@ def test_two_adamw_steps_match_jax_train_step(runtime, causal):
                                    model_kwargs={})
 
     model = transformer.Transformer(transformer.tiny_config(
-        dtype=torch.float32, causal=causal))
+        dtype=torch.float32, causal=causal, attention_impl=attention_impl))
     model.load_state_dict(from_flax(_numpy_tree(state.params)))
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=LR,
@@ -182,6 +187,9 @@ def test_presets_match_jax(preset):
     theirs = dataclasses.asdict(getattr(jax_transformer, preset)())
     assert ours.pop("dtype") == torch.bfloat16
     assert theirs.pop("dtype") == jnp.bfloat16
+    # The port's explicit choice of attention path; the flax model has its
+    # einsum by default and the Pallas kernel behind an environment knob.
+    assert ours.pop("attention_impl") == "flash"
     assert ours == theirs
 
 
@@ -190,3 +198,66 @@ def test_sequence_parallel_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="queue A, item 9"):
         transformer.Transformer(transformer.tiny_config(attention=mode))
 
+
+
+# ---------------------------------------------------------------------------
+# attention_impl: the explicit plain path on the card (fault C1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_einsum_attention_logits_match_flax(dtype, causal):
+    """``attention_impl="einsum"`` is the reference's own default path: any
+    dtype, any head_dim (``tiny_config`` has head_dim 8)."""
+    jmodel, boxed, flash_model, tokens = _pair(dtype, causal=causal)
+    model = transformer.Transformer(transformer.tiny_config(
+        dtype=_DTYPES[dtype][1], causal=causal, attention_impl="einsum"))
+    model.load_state_dict(flash_model.state_dict())
+    assert model.cfg.head_dim == 8
+    expected = np.asarray(jmodel.apply({"params": boxed}, jnp.asarray(tokens))
+                          .astype(jnp.float32))
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long()).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, expected, **TOL)
+    else:
+        rel = np.linalg.norm(got - expected) / np.linalg.norm(expected)
+        assert rel < BF16_LOGITS_REL_RMS, rel
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_einsum_attention_two_adamw_steps_match_jax_train_step(runtime,
+                                                               causal):
+    """The fp32 configuration through the einsum path: losses and
+    parameters after two steps equal the JAX train step's."""
+    _two_adamw_steps(causal, "einsum")
+
+
+def test_flash_refuses_on_the_card_what_its_kernels_do_not_take():
+    """Off the CPU, ``"flash"`` with a dtype or head_dim the kernels do not
+    take raises and names ``attention_impl="einsum"``; nothing switches on
+    its own.  (``meta`` tensors take the path a CUDA tensor takes.)"""
+    hint = 'attention_impl="einsum"'
+    head_dim_8 = torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16)
+    fp32 = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match=hint):
+        fa._check(head_dim_8, head_dim_8, head_dim_8)
+    with pytest.raises(TypeError, match=hint):
+        fa._check(fp32, fp32, fp32)
+    for t in (head_dim_8.to("meta"), fp32.to("meta")):
+        with pytest.raises((TypeError, ValueError), match=hint):
+            fa.flash_attention(t, t, t, causal=True)
+    cfg = transformer.tiny_config(dtype=torch.float32)
+    x = torch.zeros(2, 4, cfg.d_model, device="meta")
+    with torch.device("meta"):
+        flash = transformer.Attention(cfg)
+        einsum = transformer.Attention(dataclasses.replace(
+            cfg, attention_impl="einsum"))
+    with pytest.raises(TypeError, match=hint):
+        flash(x)
+    assert einsum(x).shape == (2, 4, cfg.d_model)
+
+
+def test_unknown_attention_impl_raises():
+    with pytest.raises(ValueError, match="attention_impl"):
+        transformer.Attention(transformer.tiny_config(attention_impl="sdpa"))
