@@ -26,10 +26,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    (``fuse_conv1x1_bn=True``, bf16 compute), ``hvd.DistributedOptimizer``
    over SGD-momentum, 2 warm-up and 5 timed steps on seeded synthetic data.
    Asserts a finite loss, 36 kernel launches per step, and every gradient
-   reduced by the runtime's ``CudaAllreduce`` each step.
+   reduced by the runtime's size-1 ``Allreduce`` each step.
 6. Flash-attention kernels: forward, dK/dV and dQ at BERT-large's shape
-   (8, 512, 16, 64), GPT-small's (4, 1024, 12, 64, causal), head_dim 128
-   (2, 1024, 8, 128) and two ragged lengths (200 causal, 1000), each
+   (8, 512, 16, 64) and the np=2 path's (4, 512, 16, 64), GPT-small's
+   (4, 1024, 12, 64, causal), head_dim 128 (2, 1024, 8, 128) and two
+   ragged lengths (200 causal, 1000), each
    against its plain version on the same bf16 inputs; the three timed
    shapes also time the plain version and the library yardstick
    (``scaled_dot_product_attention`` and its backward, never called by the
@@ -42,13 +43,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    over AdamW, 2 warm-up and 5 timed steps on seeded synthetic tokens
    (the tokens are the labels, as in ``benchmarks/bert_bench.py``).
    Asserts a finite loss, 24 launches of each flash kernel per step, and
-   292 gradients reduced by ``CudaAllreduce`` each step.
+   292 gradients reduced by the size-1 ``Allreduce`` each step.
 9. NCCL plane, one rank: a one-rank NCCL group in this process drives
-   ``NcclAllreduce.execute`` (the op the size > 1 chain registers for
-   ``HOROVOD_DATA_PLANE=nccl``) on fused bf16, fp16, fp32 and int32
-   responses with prescale 0.5 and postscale 2.0, against the plain
-   arithmetic: the same bits.  Then ``HOROVOD_DATA_PLANE=nccl`` at np=2 on
-   this one card must fail with the runtime's own message.
+   ``Allreduce.execute`` built for the device plane (the op the size > 1
+   chain registers for ``HOROVOD_DATA_PLANE=nccl``) on fused bf16, fp16,
+   fp32 and int32 responses with prescale 0.5 and postscale 2.0, against
+   the plain arithmetic: the same bits; and ``Broadcast``, ``Allgather``
+   (two tensors in one fused response) and ``Alltoall`` on the same plane
+   and dtypes,
+   each output the bits of its input.  Then ``HOROVOD_DATA_PLANE=nccl`` at
+   np=2 on this one card must fail with the runtime's own message.
 10. ResNet-50 at np=2: ``python -m horovod_tpu_torch.runner.launch -np 2``
     on this one card (both ranks ``device="cuda:0"``, the host plane),
     ResNet-50 (bf16, ``fuse_conv1x1_bn=True``, 224x224) at 64 images per
@@ -62,12 +66,33 @@ Phases, in order; any failure raises and the exit code is not 0:
     (a plain backward on the same shard), while the same mean summed in
     bf16 (a narrow plane, the control) lies outside it.  A worker that
     fails fails the run.
+11. BERT-large at np=2 (``--worker np2-bert``), the repo's example script's
+    start-up: full BERT-large on each rank from its own seed
+    (``1234 + rank``), local AdamW steps on its own batch (one on rank 0,
+    two on rank 1, so that every state tensor differs, ``step`` included;
+    rank 0 then doubles its learning rate), ``hvd.broadcast_object``,
+    ``hvd.broadcast_parameters`` and ``hvd.broadcast_optimizer_state`` from
+    rank 0 (timed), then 4 sequences x 512 tokens per rank through
+    ``hvd.DistributedOptimizer`` on the host plane: rank 0 takes 3 steps,
+    rank 1 2, each then calls ``hvd.join()``; an Average allreduce of the
+    mean loss, a ragged allgather of the losses, ``hvd.allgather_object``,
+    an int32 ``hvd.alltoall`` on the card with splits [1, 2] and [3, 1],
+    and ``hvd.barrier()`` close the job.  Asserts: every parameter's and
+    optimizer-state tensor's SHA-256, ``param_groups`` and the resume value
+    on both ranks equal rank 0's from before the broadcasts (every one of
+    those hashes differed across ranks before them, the control); the parameters' hash equal across ranks after steps 1
+    and 2; on rank 0's third step, where rank 1 contributes zeros, the
+    applied gradient of three parameters within ``NP2_GRAD_REL_RMS`` of
+    half its local gradient while the unhalved one lies outside; 24
+    launches of each flash kernel and 292 allreduced gradients per step;
+    finite losses, 5 allgathered losses equal on both ranks, the
+    alltoall's rows and the gathered objects as the arithmetic gives them.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --worker np2-resnet DIR`` and ``--worker nccl-np2``
-are the launched workers of phases 10 and 9.
+``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``
+and ``--worker nccl-np2`` are the launched workers of phases 10, 11 and 9.
 """
 
 from __future__ import annotations
@@ -91,9 +116,9 @@ import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.backend import cuda as cuda_backend
-from horovod_tpu_torch.backend import host as host_backend
+from horovod_tpu_torch.common.env import PLANE_HOST, PLANE_NCCL
 from horovod_tpu_torch.common.topology import ProcessTopology
-from horovod_tpu_torch.core.messages import DataType, Response
+from horovod_tpu_torch.core.messages import DataType, Response, ResponseType
 from horovod_tpu_torch.core.tensor_queue import TensorTableEntry
 from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
@@ -166,10 +191,14 @@ HOPPER_KERNELS = {
     "matmul_bn_stats": {"matmul_bn_stats_kernel": (64, 128)},
 }
 HOPPER_SASS = ("HGMMA", "UTMALDG")
-# (name, b, s, h, d, causal, timed).  The first is the main path's shape,
-# launched once per layer per step by each kernel.
+# BERT-large at np=2: sequences per rank, the np=1 path's global batch of 8.
+NP2_BERT_BATCH = 4
+# (name, b, s, h, d, causal, timed).  The first is the np=1 main path's
+# shape and the second the np=2 path's, each launched once per layer per
+# step by each kernel.
 FLASH_SHAPES = [
     ("bert_large", BERT_BATCH, BERT_SEQ, 16, 64, False, True),
+    ("bert_large_np2", NP2_BERT_BATCH, BERT_SEQ, 16, 64, False, False),
     ("gpt_small", 4, 1024, 12, 64, True, True),
     ("head_dim_128", 2, 1024, 8, 128, False, True),
     ("ragged_causal", 2, 200, 4, 64, True, False),
@@ -213,6 +242,14 @@ NP2_WATCHED = ("conv_init.kernel", "BottleneckBlock_0.FusedConv1x1BN_0.kernel",
 # at most ~2^-24.  A plane that carried or summed them in bf16 reads about
 # 2^-9 (the control in ``phase_np2_resnet``), so the limit lies between.
 NP2_GRAD_REL_RMS = 1e-6
+# BERT-large at np=2 on the one card: per-rank seeds, the start-up
+# broadcasts, rank 1 joining while rank 0 takes a third step.
+NP2_BERT_STEPS = (3, 2)  # steps of rank 0 and rank 1
+NP2_BERT_LOCAL_STEPS = (1, 2)  # their local AdamW steps before the broadcast
+NP2_BERT_WATCHED = ("layer_0.attn.qkv.kernel", "layer_23.ffn_out.kernel",
+                    "ln_f.scale")
+# Rows each rank sends to rank 0 and rank 1 in the closing alltoall.
+NP2_BERT_SPLITS = ([1, 2], [3, 1])
 LAUNCH_TIMEOUT = 300
 REPO = Path(__file__).resolve().parent
 
@@ -629,16 +666,31 @@ def phase_bert_main_path() -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+def _ready_entry(name: str, tensor: torch.Tensor, stream,
+                 **fields) -> TensorTableEntry:
+    ready = torch.cuda.Event()
+    ready.record(stream)
+    return TensorTableEntry(name, tensor=tensor, device=0, ready_event=ready,
+                            ready_stream=stream, **fields)
+
+
 def phase_nccl_one_rank() -> dict:
-    """``NcclAllreduce.execute`` on a one-rank NCCL group: the fused buffer,
-    the widening, the scales and the unfuse on the card, against the plain
-    arithmetic on the same inputs."""
+    """The device plane's ops on a one-rank NCCL group: ``Allreduce``
+    (the fused buffer, the widening, the scales and the unfuse on the card)
+    against the plain arithmetic, and ``Broadcast``, ``Allgather`` (two
+    tensors in one fused response) and ``Alltoall``, which move
+    bits, against their inputs' bytes."""
     dev = torch.device("cuda", 0)
     # Built as the runtime builds its device plane's group.
     group = cuda_backend.nccl_group(dist.HashStore(), 0, 1, LAUNCH_TIMEOUT)
     try:
         # Driven directly: enabled() would ask for size > 1.
-        op = cuda_backend.NcclAllreduce(ProcessTopology(), dev, group)
+        topo = ProcessTopology()
+        nccl = PLANE_NCCL
+        op = cuda_backend.Allreduce(topo, dev, nccl, group)
+        moves = {"broadcast": cuda_backend.Broadcast(topo, dev, nccl, group),
+                 "allgather": cuda_backend.Allgather(topo, dev, nccl, group),
+                 "alltoall": cuda_backend.Alltoall(topo, dev, nccl, group)}
         gen = torch.Generator(device=dev).manual_seed(3)
         stream = torch.cuda.current_stream(dev)
         checked = {}
@@ -652,14 +704,9 @@ def phase_nccl_one_rank() -> dict:
             else:
                 tensors = [(torch.randn(s, device=dev, generator=gen) * 10)
                            .to(dtype) for s in shapes]
-            entries = []
-            for i, t in enumerate(tensors):
-                ready = torch.cuda.Event()
-                ready.record(stream)
-                entries.append(TensorTableEntry(
-                    f"{dtype}.{i}", tensor=t, device=0, prescale_factor=0.5,
-                    postscale_factor=2.0, ready_event=ready,
-                    ready_stream=stream))
+            entries = [_ready_entry(f"{dtype}.{i}", t, stream,
+                                    prescale_factor=0.5, postscale_factor=2.0)
+                       for i, t in enumerate(tensors)]
             response = Response(
                 tensor_names=[e.tensor_name for e in entries],
                 tensor_type=DataType.from_torch(dtype),
@@ -673,10 +720,38 @@ def phase_nccl_one_rank() -> dict:
                     .to(dtype)
                 if not torch.equal(e.output, plain):
                     raise AssertionError(
-                        f"NcclAllreduce {dtype} {tuple(e.tensor.shape)}: "
+                        f"nccl allreduce {dtype} {tuple(e.tensor.shape)}: "
                         f"max |err| "
                         f"{(e.output.double() - plain.double()).abs().max()}")
-            checked[str(dtype)] = len(entries)
+            checked[str(dtype)] = {"allreduce": len(entries)}
+            kind = DataType.from_torch(dtype)
+            cases = {
+                "broadcast": ([_ready_entry("b", tensors[2], stream,
+                                            root_rank=0)],
+                              Response(ResponseType.BROADCAST, ["b"], kind,
+                                       [tensors[2].numel()], devices=[0])),
+                "allgather": ([_ready_entry("g0", tensors[1], stream),
+                               _ready_entry("g1", tensors[2], stream)],
+                              Response(ResponseType.ALLGATHER, ["g0", "g1"],
+                                       kind, [37, 4096], devices=[0])),
+                "alltoall": ([_ready_entry("a", tensors[2], stream,
+                                           splits=[4096])],
+                             Response(ResponseType.ALLTOALL, ["a"], kind,
+                                      [4096], devices=[0])),
+            }
+            for name, (move_entries, move_response) in cases.items():
+                status = moves[name].execute(move_response, move_entries)
+                assert status.ok and status.pending, (name, status)
+                move_entries[0].done_event.synchronize()
+                for e in move_entries:
+                    if e.output.shape != e.tensor.shape or not torch.equal(
+                            cuda_backend.as_bytes(e.output),
+                            cuda_backend.as_bytes(e.tensor)):
+                        raise AssertionError(
+                            f"nccl {name} {dtype} {tuple(e.tensor.shape)}: "
+                            f"output {tuple(e.output.shape)} is not the "
+                            "input's bits")
+                checked[str(dtype)][name] = len(move_entries)
         return checked
     finally:
         group.shutdown()
@@ -723,6 +798,26 @@ def nccl_np2_worker() -> None:
     print("NCCL_PLANE_UP", hvd.rank(), flush=True)
 
 
+def time_host_allreduce() -> list:
+    """Wall time the background thread spends in the host plane's
+    allreduce (its copies wait for the gradients' ready events, so
+    backward overlaps), summed into the returned list's one item."""
+    op_seconds = [0.0]
+    execute = cuda_backend.Allreduce.execute
+
+    def timed_execute(self, response, entries):
+        if self.plane != PLANE_HOST:
+            return execute(self, response, entries)
+        t = time.perf_counter()
+        try:
+            return execute(self, response, entries)
+        finally:
+            op_seconds[0] += time.perf_counter() - t
+
+    cuda_backend.Allreduce.execute = timed_execute
+    return op_seconds
+
+
 def np2_worker(out_dir: str) -> None:
     """One rank of the np=2 ResNet-50 job: 3 steps, with the counts, times,
     hashes and watched gradients of each written to ``out_dir``."""
@@ -750,19 +845,7 @@ def np2_worker(out_dir: str) -> None:
     shard = slice(rank * NP2_BATCH, (rank + 1) * NP2_BATCH)
     batch = {"x": x[shard].contiguous(), "y": y[shard].contiguous()}
     del x, y
-    # Wall time the background thread spends in the host plane's op (its
-    # copies wait for the gradients' ready events, so backward overlaps).
-    op_seconds = [0.0]
-    execute = host_backend.HostAllreduce.execute
-
-    def timed_execute(self, response, entries):
-        t = time.perf_counter()
-        try:
-            return execute(self, response, entries)
-        finally:
-            op_seconds[0] += time.perf_counter() - t
-
-    host_backend.HostAllreduce.execute = timed_execute
+    op_seconds = time_host_allreduce()
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
     for _ in range(NP2_STEPS):
@@ -853,6 +936,236 @@ def phase_np2_resnet(card_line: str) -> dict:
     return summary
 
 
+def _sha(t: torch.Tensor) -> str:
+    return _sha_all([t])
+
+
+def _sha_all(tensors) -> str:
+    """SHA-256 of the tensors' bytes, one tensor on the host at a time."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def np2_bert_worker(out_dir: str) -> None:
+    """One rank of the np=2 BERT-large job, as the repo's example script
+    (``examples/pytorch/pytorch_synthetic_benchmark.py``) starts one:
+    weights from a per-rank seed, local AdamW steps, then rank 0's
+    weights, optimizer state and resume point broadcast to every rank.
+    Rank 0 trains 3 steps and rank 1 2, then each joins; the job ends with
+    an allreduce, an allgather, an object allgather, an alltoall and a
+    barrier.  What the gates need goes to ``out_dir``."""
+    t_start = time.perf_counter()
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    assert size == 2 and dev == torch.device("cuda", 0), (size, dev)
+    cfg = transformer.bert_large_config(max_len=BERT_SEQ, causal=False)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(1234 + rank)).to(dev)
+    params = list(model.named_parameters())
+    watched = [p for name, p in params if name in NP2_BERT_WATCHED]
+    assert len(params) == BERT_PARAMS and len(watched) == 3
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    # Local steps on the rank's own batch: the state of a checkpoint that
+    # each rank restored differently, ``step`` included.
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    own = torch.randint(0, cfg.vocab_size, (NP2_BERT_BATCH, BERT_SEQ),
+                        device=dev, generator=gen)
+    for _ in range(NP2_BERT_LOCAL_STEPS[rank]):
+        cross_entropy_loss(model(own), own).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    if rank == 0:
+        for group in opt.param_groups:
+            group["lr"] = 2e-4
+    out = {"before": {"params": {name: _sha(p) for name, p in params}}}
+    resume = hvd.broadcast_object(1000 + 7 * rank, 0)
+    opt = hvd.DistributedOptimizer(opt, named_parameters=params)
+
+    def opt_state():
+        st = opt.state_dict()
+        return ({f"{pid}.{k}": _sha(v) for pid, s in st["state"].items()
+                 for k, v in s.items()}, st["param_groups"])
+
+    out["before"]["opt"], out["before"]["groups"] = opt_state()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in model.state_dict().values())
+    nbytes += sum(v.numel() * v.element_size()
+                  for s in opt.state_dict()["state"].values()
+                  for v in s.values() if isinstance(v, torch.Tensor))
+    counts = dict(cuda_backend.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    torch.cuda.synchronize()
+    out["broadcast_s"] = time.perf_counter() - t0
+    out["broadcast_bytes"] = nbytes
+    out["broadcast_responses"] = {k: cuda_backend.stats[k] - counts[k]
+                                  for k in counts if cuda_backend.stats[k]
+                                  != counts[k]}
+    out["resume"] = resume
+    out["after"] = {"params": {name: _sha(p) for name, p in params}}
+    out["after"]["opt"], out["after"]["groups"] = opt_state()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (size * NP2_BERT_BATCH,
+                                               BERT_SEQ),
+                           device=dev, generator=gen)
+    shard = tokens[rank * NP2_BERT_BATCH:(rank + 1) * NP2_BERT_BATCH]
+    batch = {"x": shard.contiguous(), "y": shard.contiguous()}
+    del tokens
+    op_seconds = time_host_allreduce()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for step in range(NP2_BERT_STEPS[rank]):
+        model.train()
+        local = [g.float().cpu() for g in torch.autograd.grad(
+            cross_entropy_loss(model(batch["x"]), batch["y"]), watched)]
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        counts = dict(cuda_backend.stats)
+        op_seconds[0] = 0.0
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        steps.append({
+            "loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
+            "plane_ms": 1e3 * op_seconds[0],
+            **{k: fa.LAUNCHES[k] - launches[k] for k in FLASH_KERNELS},
+            **{k: cuda_backend.stats[k] - counts[k] for k in counts},
+            "hash": _sha_all(p for _, p in params),
+            "local": local,
+            "applied": [p.grad.float().cpu() for p in watched]})
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["join"] = hvd.join()
+    losses = torch.tensor([s["loss"] for s in steps], device=dev)
+    out["mean_loss"] = float(hvd.allreduce(losses.mean(), op=hvd.Average))
+    out["losses"] = hvd.allgather(losses).cpu()
+    out["objects"] = hvd.allgather_object({"rank": rank,
+                                           "steps": len(steps)})
+    splits = NP2_BERT_SPLITS[rank]
+    rows = torch.arange(sum(splits), device=dev, dtype=torch.int32)
+    sent = (100 * rank + rows)[:, None] * 10 + torch.arange(
+        4, device=dev, dtype=torch.int32)
+    out["alltoall"] = hvd.alltoall(sent, splits=splits).cpu()
+    hvd.barrier()
+    hvd.shutdown()
+    out["steps"] = steps
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    print("NP2_BERT_DONE", rank, flush=True)
+
+
+def phase_np2_bert(card_line: str) -> dict:
+    # Inside the checkout (``_runs/`` is gitignored), deleted afterwards.
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_bert.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(2, ["np2-bert", out_dir], LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 BERT-large job failed with exit "
+                                 f"{code}:\n{out}\n{err}")
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+    r0, r1 = ranks
+    # The start-up broadcasts: rank 0's weights, state and hyperparameters
+    # everywhere; every tensor differed across the ranks before (the
+    # control).
+    for what in ("params", "opt"):
+        before0, before1 = r0["before"][what], r1["before"][what]
+        assert before0.keys() == before1.keys(), what
+        same = [k for k in before0 if before0[k] == before1[k]]
+        if same:
+            raise AssertionError(f"{what}: {len(same)} tensors were equal "
+                                 f"across the ranks before the broadcast "
+                                 f"(the control), first {same[0]}")
+    for r, rk in enumerate(ranks):
+        if rk["after"]["params"] != r0["before"]["params"]:
+            raise AssertionError(f"rank {r}: parameters after the broadcast "
+                                 "are not rank 0's")
+        if rk["after"]["opt"] != r0["before"]["opt"]:
+            raise AssertionError(f"rank {r}: optimizer state after the "
+                                 "broadcast is not rank 0's")
+        assert rk["after"]["groups"] == r0["before"]["groups"], r
+        assert rk["resume"] == 1000, (r, rk["resume"])
+        assert rk["join"] == 0, (r, rk["join"])
+    keys = {k.split(".", 1)[1] for k in r0["before"]["opt"]}
+    assert keys == {"exp_avg", "exp_avg_sq", "step"}, keys
+    n_opt = len(r0["before"]["opt"])
+    assert n_opt == 3 * BERT_PARAMS, n_opt
+    assert r0["before"]["groups"][0]["lr"] == 2e-4, r0["before"]["groups"]
+    # Training: 24 launches of each flash kernel and 292 allreduced
+    # gradients per step; the weights equal across ranks after the steps
+    # both took.
+    for r, rk in enumerate(ranks):
+        assert len(rk["steps"]) == NP2_BERT_STEPS[r], r
+        for step, s in enumerate(rk["steps"]):
+            for kernel in FLASH_KERNELS:
+                assert s[kernel] == BERT_LAYERS, (r, step, kernel, s[kernel])
+            assert s["allreduce_tensors"] == BERT_PARAMS, (r, step, s)
+            assert math.isfinite(s["loss"]), (r, step, s["loss"])
+    for step in range(min(NP2_BERT_STEPS)):
+        h0, h1 = r0["steps"][step]["hash"], r1["steps"][step]["hash"]
+        if h0 != h1:
+            raise AssertionError(f"step {step}: parameters differ across "
+                                 f"ranks ({h0} vs {h1})")
+    # Rank 0's third step, with rank 1 joined: Average over 2 of its own
+    # gradient and rank 1's zeros is half its gradient; the unhalved one
+    # (the control) must fail the limit.
+    last = r0["steps"][-1]
+    worst, control = 0.0, math.inf
+    for name, applied, local in zip(NP2_BERT_WATCHED, last["applied"],
+                                    last["local"]):
+        err = rel_rms(applied, local.double() / 2)
+        unhalved = rel_rms(local, local.double() / 2)
+        worst, control = max(worst, err), min(control, unhalved)
+        if err > NP2_GRAD_REL_RMS or unhalved <= NP2_GRAD_REL_RMS:
+            raise AssertionError(
+                f"joined step {name}: applied gradient vs half the local "
+                f"one, relative RMS {err!r} (limit {NP2_GRAD_REL_RMS}); the "
+                f"unhalved control's {unhalved!r} must exceed it")
+    # The closing collectives.
+    losses = [s["loss"] for s in r0["steps"]] + [s["loss"]
+                                                 for s in r1["steps"]]
+    for r, rk in enumerate(ranks):
+        got = rk["losses"]
+        assert got.shape == (5,) and torch.isfinite(got).all(), (r, got)
+        assert got.tolist() == torch.tensor(losses).tolist(), (r, got)
+        assert math.isfinite(rk["mean_loss"]), (r, rk["mean_loss"])
+        assert rk["objects"] == [{"rank": 0, "steps": 3},
+                                 {"rank": 1, "steps": 2}], rk["objects"]
+        expected = torch.cat([
+            ((100 * src + torch.arange(sum(NP2_BERT_SPLITS[src]),
+                                       dtype=torch.int32))[:, None] * 10
+             + torch.arange(4, dtype=torch.int32))[
+                sum(NP2_BERT_SPLITS[src][:r]):
+                sum(NP2_BERT_SPLITS[src][:r + 1])]
+            for src in range(2)])
+        if not torch.equal(rk["alltoall"], expected):
+            raise AssertionError(f"rank {r} alltoall: {rk['alltoall']} vs "
+                                 f"{expected}")
+    assert torch.equal(r0["losses"], r1["losses"])
+    for r, rk in enumerate(ranks):
+        per = rk["steps"]
+        print(f"np2 BERT: rank {r} BERT-large batch {NP2_BERT_BATCH} x "
+              f"{BERT_SEQ} bf16, AdamW, host plane, ms/step "
+              f"{[round(s['ms'], 1) for s in per]} (in the plane's op "
+              f"{[round(s['plane_ms'], 1) for s in per]}), losses "
+              f"{[round(s['loss'], 4) for s in per]}, allreduce responses "
+              f"per step {[s['allreduce_responses'] for s in per]}, "
+              f"start-up broadcast {rk['broadcast_s']:.2f}s for "
+              f"{rk['broadcast_bytes'] / 1e9:.3f} GB "
+              f"({rk['broadcast_responses']}), peak "
+              f"{rk['peak_mem_gb']:.1f} GB, worker {rk['seconds']:.1f}s "
+              f"[{card_line}]", flush=True)
+    return {"seconds": seconds, "worst_grad_rel_rms": worst,
+            "control_rel_rms": control}
+
+
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
     for key in fa.LAUNCHES:
@@ -869,6 +1182,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         if sys.argv[2:3] == ["np2-resnet"]:
             np2_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["np2-bert"]:
+            np2_bert_worker(sys.argv[3])
         elif sys.argv[2:3] == ["nccl-np2"]:
             nccl_np2_worker()
         else:
@@ -952,8 +1267,9 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     nccl = phase_nccl_one_rank()
-    print(f"nccl plane, one rank: NcclAllreduce bit-exact against the plain "
-          f"arithmetic for {nccl} entries", flush=True)
+    print(f"nccl plane, one rank: allreduce bit-exact against the plain "
+          f"arithmetic, broadcast, allgather and alltoall "
+          f"against their inputs' bits, entries {nccl}", flush=True)
     print(f"nccl plane at np=2 on one card refused: "
           f"{phase_nccl_np2_refused()}", flush=True)
 
@@ -967,6 +1283,20 @@ def main() -> int:
           f"local ones (limit {NP2_GRAD_REL_RMS}; the bf16-summed control "
           f"at least {np2['narrow_control_rel_rms']!r}) [{card_line}]",
           flush=True)
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    bert2 = phase_np2_bert(card_line)
+    print(f"np2 BERT: 2 ranks from per-rank seeds in {bert2['seconds']:.1f}s "
+          f"(launch included); after the broadcasts every parameter and "
+          f"optimizer-state tensor is rank 0's on both ranks (all "
+          f"{BERT_PARAMS} + {3 * BERT_PARAMS} differed across the ranks "
+          f"before); parameters "
+          f"identical across ranks after steps 1 and 2; on rank 0's joined "
+          f"step the applied gradient is within "
+          f"{bert2['worst_grad_rel_rms']!r} of half its own (limit "
+          f"{NP2_GRAD_REL_RMS}; unhalved control "
+          f"{bert2['control_rel_rms']!r}) [{card_line}]", flush=True)
 
     timed = [r for r in rows if "ms" in r]
 

@@ -1,8 +1,10 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of ``horovod_tpu``.
 
 ``import horovod_tpu_torch as hvd`` gives the Horovod surface for torch:
-``hvd.init()``, the eager allreduce ops, ``hvd.DistributedOptimizer`` and
-``hvd.Compression``.  The runtime works on the card (``cuda:<local_rank>``)
+``hvd.init()``, the eager collectives (allreduce, broadcast, allgather,
+alltoall, join, barrier), ``hvd.DistributedOptimizer``,
+``hvd.Compression``, and the start-up broadcasts of parameters, optimizer
+state and objects.  The runtime works on the card (``cuda:<local_rank>``)
 unless ``hvd.init(device="cpu")`` asks for the CPU.  This package imports
 neither JAX nor ``horovod_tpu``.
 """
@@ -22,15 +24,32 @@ from .basics import (
 )
 from .common.exceptions import HorovodInternalError
 from .compression import Compression
+from .functions import (
+    allgather_object,
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+)
 from .ops import (
     Adasum,
     Average,
     Sum,
+    allgather,
+    allgather_async,
     allreduce,
     allreduce_,
     allreduce_async,
     allreduce_async_,
+    alltoall,
+    barrier,
+    broadcast,
+    broadcast_,
+    broadcast_async,
+    broadcast_async_,
+    initialized,
+    join,
     poll,
+    size_or_one,
     synchronize,
 )
 from .optimizer import DistributedOptimizer
@@ -38,7 +57,13 @@ from .optimizer import DistributedOptimizer
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
+    "size_or_one", "initialized",
     "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
-    "poll", "synchronize", "Sum", "Average", "Adasum",
+    "allgather", "allgather_async", "broadcast", "broadcast_async",
+    "broadcast_", "broadcast_async_", "alltoall", "join", "barrier",
+    "poll", "synchronize",
+    "broadcast_parameters", "broadcast_optimizer_state",
+    "broadcast_object", "allgather_object",
+    "Sum", "Average", "Adasum",
     "Compression", "DistributedOptimizer", "HorovodInternalError",
 ]

@@ -1,29 +1,48 @@
-"""Device allreduce on the card.
+"""The collectives: allreduce, and the broadcast, allgather and alltoall
+that move bits.  Each is one class, built once for each plane the runtime
+runs (``core/state.py::register_ops``):
 
-Counterpart of ``horovod_tpu/backend/xla.py``, the reference's
-``NCCLAllreduce`` role (``nccl_operations.cc:126-191``):
+- ``LOCAL``, size 1 (``XlaAllreduce.execute`` with ``local_allreduce``,
+  ``horovod_tpu/backend/xla.py:276-305, 578-612``): the sum over one rank
+  is the identity, so the allreduce applies ``prescale·postscale``; the
+  others copy into the outputs.
+- ``PLANE_NCCL``, the device plane (``HOROVOD_DATA_PLANE=nccl``; the
+  reference's ``NCCLAllreduce``, ``nccl_operations.cc:126-191``): the
+  exchange on the runtime's NCCL group (:func:`nccl_group`) from the op's
+  stream.
+- ``PLANE_HOST``, the host plane (the default at size > 1; the roles of
+  ``horovod_tpu/backend/cpu_ring.py``'s ``RingAllreduce``,
+  ``TreeBroadcast`` :790, ``RingAllgather`` :701 and ``PairwiseAlltoall``
+  :876): the exchange on the runtime's gloo group, CUDA buffers copied to
+  the host on the op's stream before it and back after it.  gloo's
+  allreduce does the sum, not a ring over the port's own TCP mesh.
 
-- :class:`CudaAllreduce` plays ``XlaAllreduce.execute`` at size 1
-  (``xla.py:578-612`` with ``local_allreduce``, :276-305): the sum over one
-  rank is the identity, so it applies ``prescale·postscale``.
-- :class:`NcclAllreduce` plays it at size > 1 (``allreduce_fn``,
-  :246-274): :func:`fuse` the entries into one buffer, sum it over the NCCL
-  group, :func:`unfuse` into the outputs.  This is the device plane,
-  ``HOROVOD_DATA_PLANE=nccl``.
+:func:`plane_takes` picks the op: at size > 1 the device plane's takes a
+response whose tensors lie on the card on every rank and refuses one that
+mixes the CPU and the card across ranks (reference Horovod's "Mismatched
+CPU/GPU device selection"); a response on the CPU on every rank (AdamW's
+0-d ``step``, the object collectives' bytes) takes the host plane's.
 
-Both widen floats of 16 bits or fewer to fp32 before any arithmetic and cast
-back at the end, as ``xla.py:257-270`` does, so a bf16 sum over ranks adds
-in fp32.  The fused buffer holds exactly the entries' elements: the JAX
-package pads it to a power-of-two bucket to spare XLA recompiles, which
-NCCL does not need, so no padding exists to reach an output.  Plain torch
-ops: the JAX package leaves this arithmetic to XLA, not to Pallas.
+The allreduce fuses the entries into one buffer (:func:`fuse`), widening
+floats of 16 bits or fewer to fp32 as ``xla.py:257-270`` does, sums it and
+unfuses it (:func:`unfuse`), so a bf16 sum over ranks adds in fp32 and
+rounds once (the JAX ring rounds at every hop, ``cpu_ring.py:106-112,
+180-194``).
+The fused buffer holds exactly the entries' elements: the JAX package pads
+it to a power-of-two bucket to spare XLA recompiles, which neither group
+needs.  The bit-moving collectives (``XlaBroadcast`` :950,
+``XlaAllgather`` :615, ``XlaAlltoall`` :698) work on each entry's bytes,
+so every dtype moves exactly: the allgather pads each rank's block to the
+widest rank's (ragged first dimensions), the alltoall runs
+``alltoall_base`` with the response's split column.  Plain torch ops and
+group calls: the JAX package leaves this to XLA, not to Pallas.
 
 CUDA tensors run on the op's own stream, after waiting on each entry's ready
 event (recorded on the caller's stream at enqueue; autograd may produce a
 gradient on another stream than this one).  The op records one done event
 and returns ``Status.in_progress()``; the runtime's finalizer thread waits
 on that event before firing callbacks (reference ``gpu_operations.h:98-127``).
-CPU tensors are reduced at once with the same arithmetic (size 1 only).
+CPU tensors take the same steps at once, with no stream and no copies.
 """
 
 from __future__ import annotations
@@ -34,17 +53,21 @@ from typing import Dict, List
 import torch
 import torch.distributed as dist
 
-from ..common import env as env_mod
+from ..common.env import HOROVOD_DATA_PLANE, PLANE_HOST, PLANE_NCCL
 from ..common.exceptions import HorovodInternalError
 from ..common.topology import ProcessTopology
-from ..core.messages import Response, ResponseType
+from ..core.messages import Response
 from ..core.operation_manager import CollectiveOp
 from ..core.tensor_queue import Status, TensorTableEntry
 
-#: Counts kept by the allreduce ops, this module's and the host plane's:
-#: ``allreduce_responses`` (responses executed) and ``allreduce_tensors``
-#: (entries reduced), so a run can show that tensors went through them.
-stats: Dict[str, int] = {"allreduce_responses": 0, "allreduce_tensors": 0}
+#: Counts kept by the ops of this module and of the host plane, per
+#: collective: ``<kind>_responses`` (responses executed) and
+#: ``<kind>_tensors`` (entries), so a run can show that tensors went
+#: through them.
+stats: Dict[str, int] = {f"{kind}_{what}": 0
+                         for kind in ("allreduce", "broadcast", "allgather",
+                                      "alltoall")
+                         for what in ("responses", "tensors")}
 
 
 def widened(tensor: torch.Tensor) -> torch.Tensor:
@@ -112,9 +135,17 @@ def record_done(stream, entries: List[TensorTableEntry]) -> Status:
     return Status.in_progress()
 
 
-def count(entries: List[TensorTableEntry]) -> None:
-    stats["allreduce_responses"] += 1
-    stats["allreduce_tensors"] += len(entries)
+def entries_device(response: Response,
+                   entries: List[TensorTableEntry]) -> torch.device:
+    """The one device of this rank's entries in ``response``."""
+    devices = {e.tensor.device for e in entries}
+    if len(devices) != 1:
+        raise HorovodInternalError(
+            f"rank holds tensors on {sorted(map(str, devices))} in one "
+            f"fused {response.response_type.name.lower()} "
+            f"({response.tensor_names}); give each tensor the same device "
+            "on every rank")
+    return devices.pop()
 
 
 def nccl_group(store: "dist.Store", rank: int, size: int,
@@ -127,70 +158,226 @@ def nccl_group(store: "dist.Store", rank: int, size: int,
     return dist.ProcessGroupNCCL(store, rank, size, options)
 
 
-class CudaAllreduce(CollectiveOp):
-    """Size 1: ``prescale·postscale`` into each output."""
+#: The plane of an op at size 1.
+LOCAL = "local"
 
-    def __init__(self, topo: ProcessTopology, device: torch.device):
+
+def plane_takes(plane: str, size: int, response: Response) -> bool:
+    """Whether the op built for ``plane`` runs ``response``.  Every rank
+    reads the same size and negotiated devices, so every rank picks the
+    same op.  The device plane's op stands before the host plane's in the
+    chain: the host plane's takes what the device plane's leaves, and at
+    ``HOROVOD_DATA_PLANE=cpu`` everything."""
+    if size == 1:
+        return plane == LOCAL
+    if plane == PLANE_NCCL:
+        return any(d >= 0 for d in response.devices)
+    return plane == PLANE_HOST
+
+
+class PlaneOp(CollectiveOp):
+    """The flow shared by the collectives: ``group`` is None at size 1,
+    else the NCCL group (``plane`` PLANE_NCCL) or the gloo group
+    (PLANE_HOST)."""
+
+    KIND: str
+
+    def __init__(self, topo: ProcessTopology, device: torch.device,
+                 plane: str = LOCAL, group=None):
         self.topo = topo
+        self.device = device
+        self.plane = plane
+        self.group = group
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" \
             else None
 
     def enabled(self, response: Response,
                 entries: List[TensorTableEntry]) -> bool:
-        return (response.response_type == ResponseType.ALLREDUCE
-                and self.topo.size == 1
-                and all(e.tensor is not None for e in entries))
+        return plane_takes(self.plane, self.topo.size, response)
 
     def execute(self, response: Response,
                 entries: List[TensorTableEntry]) -> Status:
-        scale = response.prescale_factor * response.postscale_factor
-        count(entries)
-        if response.devices == [-1]:
-            for e in entries:
-                if e.output is None:
-                    e.output = torch.empty_like(e.tensor)
-                _reduce_into(e.tensor, e.output, scale)
+        if self.plane == PLANE_NCCL and -1 in response.devices:
+            raise HorovodInternalError(
+                f"Mismatched CPU/GPU device selection for "
+                f"{response.tensor_names}: some ranks hold the tensor on the "
+                f"CPU and others on the card; {HOROVOD_DATA_PLANE}="
+                f"{PLANE_NCCL} moves tensors on the card only (the host "
+                f"plane, {HOROVOD_DATA_PLANE}={PLANE_HOST}, takes both)")
+        device = entries_device(response, entries)
+        stats[f"{self.KIND}_responses"] += 1
+        stats[f"{self.KIND}_tensors"] += len(entries)
+        if device.type == "cpu":
+            self._run(response, entries, device)
             return Status.OK()
         stream = self.stream
         with torch.cuda.stream(stream):
             wait_ready(stream, entries)
+            self._run(response, entries, device)
+            return record_done(stream, entries)
+
+    def _wire(self, device: torch.device) -> torch.device:
+        """Where the group's buffers lie: the host for the host plane
+        (copying a CUDA buffer there waits for the op's stream, so a sent
+        buffer is complete), else ``device``."""
+        return torch.device("cpu") if self.plane == PLANE_HOST else device
+
+    @staticmethod
+    def _place(e: TensorTableEntry, out: torch.Tensor) -> None:
+        """Hand a new output tensor to the entry: allocated on the op's
+        stream, used on the caller's."""
+        if e.ready_stream is not None:
+            out.record_stream(e.ready_stream)
+        e.output = out
+
+    def _run(self, response: Response, entries: List[TensorTableEntry],
+             device: torch.device) -> None:
+        raise NotImplementedError
+
+
+class Allreduce(PlaneOp):
+    """Size 1: ``prescale·postscale`` into each output.  Size > 1: fuse,
+    ``allreduce`` on the group, unfuse."""
+
+    KIND = "allreduce"
+
+    def _run(self, response, entries, device):
+        if self.group is None:
+            scale = response.prescale_factor * response.postscale_factor
             for e in entries:
                 if e.output is None:
-                    e.output = torch.empty_like(e.tensor)
-                    e.output.record_stream(e.ready_stream)
+                    self._place(e, torch.empty_like(e.tensor))
                 _reduce_into(e.tensor, e.output, scale)
-            return record_done(stream, entries)
+            return
+        fused = fuse(entries, response.prescale_factor).to(self._wire(device))
+        # On the NCCL group the NCCL stream waits on this one, and this one
+        # on it.
+        self.group.allreduce([fused]).wait()
+        unfuse(fused.to(device), entries, response.postscale_factor)
 
 
-class NcclAllreduce(CollectiveOp):
-    """Size > 1 on the device plane: fuse, ``allreduce`` on the NCCL
-    ``group`` (:func:`nccl_group`) from the op's stream, unfuse.  Takes
-    CUDA tensors only."""
+# ---------------------------------------------------------------------------
+# broadcast, allgather, alltoall: bits moved as bytes
+# ---------------------------------------------------------------------------
 
-    def __init__(self, topo: ProcessTopology, device: torch.device, group):
-        self.topo = topo
-        self.group = group
-        self.stream = torch.cuda.Stream(device)
 
-    def enabled(self, response: Response,
-                entries: List[TensorTableEntry]) -> bool:
-        return response.response_type == ResponseType.ALLREDUCE \
-            and self.topo.size > 1
+def as_bytes(tensor: torch.Tensor) -> torch.Tensor:
+    """The tensor's elements as flat bytes (a view when it is contiguous)."""
+    return tensor.reshape(-1).view(torch.uint8)
 
-    def execute(self, response: Response,
-                entries: List[TensorTableEntry]) -> Status:
-        if -1 in response.devices:
-            raise HorovodInternalError(
-                f"{env_mod.HOROVOD_DATA_PLANE}={env_mod.PLANE_NCCL} reduces "
-                f"tensors on the card, but a rank sent a CPU tensor in "
-                f"{response.tensor_names}; use "
-                f"{env_mod.HOROVOD_DATA_PLANE}={env_mod.PLANE_HOST}")
-        count(entries)
-        stream = self.stream
-        with torch.cuda.stream(stream):
-            wait_ready(stream, entries)
-            fused = fuse(entries, response.prescale_factor)
-            # The NCCL stream waits on this one, and this one on it.
-            self.group.allreduce([fused]).wait()
-            unfuse(fused, entries, response.postscale_factor)
-            return record_done(stream, entries)
+
+def typed(buf: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    """Bytes back as a tensor of ``dtype`` and ``shape`` (a view)."""
+    return buf.view(dtype).reshape(shape)
+
+
+class Broadcast(PlaneOp):
+    """Size 1: the root's tensor into the output (a copy for the
+    out-of-place flavor; nothing for the in-place one).  Size > 1: the
+    other ranks receive the root's bytes."""
+
+    KIND = "broadcast"
+
+    def _run(self, response, entries, device):
+        e = entries[0]
+        src = e.tensor
+        if self.group is None or self.topo.rank == e.root_rank:
+            if e.output is None:
+                self._place(e, src.clone())
+            elif e.output is not src:
+                e.output.copy_(src)
+            if self.group is not None:
+                self.group.broadcast([as_bytes(src).to(self._wire(device))],
+                                     self._root(e)).wait()
+            return
+        buf = torch.empty(src.numel() * src.element_size(),
+                          dtype=torch.uint8, device=self._wire(device))
+        self.group.broadcast([buf], self._root(e)).wait()
+        out = typed(buf.to(device), src.dtype, src.shape)
+        if e.output is None:
+            self._place(e, out)
+        else:
+            e.output.copy_(out)
+
+    @staticmethod
+    def _root(e: TensorTableEntry) -> "dist.BroadcastOptions":
+        options = dist.BroadcastOptions()
+        options.rootRank = e.root_rank
+        return options
+
+
+class Allgather(PlaneOp):
+    """Size 1: a copy of each tensor.  Size > 1: one block of this rank's
+    entries' bytes, padded to the widest rank's block, is gathered from
+    every rank; each output is its tensor's rows of every rank's block, in
+    rank order (the JAX ``RingAllgather``'s layout)."""
+
+    KIND = "allgather"
+
+    def _run(self, response, entries, device):
+        size, k = self.topo.size, len(entries)
+        # tensor_sizes: k blocks of ``size`` first dimensions; tensor i's
+        # rows on rank r are tensor_sizes[i * size + r].
+        rows = response.tensor_sizes
+        row_bytes = [_row_bytes(e.tensor) for e in entries]
+        widths = [sum(rows[i * size + r] * row_bytes[i] for i in range(k))
+                  for r in range(size)]
+        own = torch.zeros(max(widths), dtype=torch.uint8, device=device)
+        own[:widths[self.topo.rank]] = torch.cat(
+            [as_bytes(e.tensor) for e in entries])
+        if self.group is None:
+            blocks = [own]
+        else:
+            own = own.to(self._wire(device))
+            blocks = [torch.empty_like(own) for _ in range(size)]
+            self.group.allgather([blocks], [own]).wait()
+            blocks = [b.to(device) for b in blocks]
+        for i, e in enumerate(entries):
+            parts = []
+            for r in range(size):
+                off = sum(rows[j * size + r] * row_bytes[j] for j in range(i))
+                n = rows[i * size + r] * row_bytes[i]
+                parts.append(blocks[r][off:off + n])
+            shape = (sum(rows[i * size:(i + 1) * size]),) \
+                + tuple(e.tensor.shape[1:])
+            self._place(e, typed(torch.cat(parts), e.tensor.dtype, shape))
+
+
+def _row_bytes(tensor: torch.Tensor) -> int:
+    """Bytes of one row along the first dimension."""
+    n = tensor.element_size()
+    for d in tensor.shape[1:]:
+        n *= d
+    return n
+
+
+class Alltoall(PlaneOp):
+    """Size 1: a copy of the tensor.  Size > 1: this rank's rows go out by
+    its splits and come back by the response's split column
+    (``alltoall_base`` on the rows' bytes); ``received_splits`` holds the
+    rows received from each rank."""
+
+    KIND = "alltoall"
+
+    def _run(self, response, entries, device):
+        e = entries[0]
+        size, rank = self.topo.size, self.topo.rank
+        # Row r of the N x N matrix is rank r's send splits.
+        matrix = response.tensor_sizes
+        send = matrix[rank * size:(rank + 1) * size]
+        recv = [matrix[r * size + rank] for r in range(size)]
+        e.received_splits = recv
+        row = _row_bytes(e.tensor)
+        buf = as_bytes(e.tensor)
+        if self.group is None:
+            buf = buf.clone()
+        else:
+            wire = self._wire(device)
+            out = torch.empty(sum(recv) * row, dtype=torch.uint8,
+                              device=wire)
+            self.group.alltoall_base(
+                out, buf.to(wire), [n * row for n in recv],
+                [n * row for n in send], dist.AllToAllOptions()).wait()
+            buf = out.to(device)
+        self._place(e, typed(buf, e.tensor.dtype,
+                             (sum(recv),) + tuple(e.tensor.shape[1:])))

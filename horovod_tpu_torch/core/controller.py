@@ -19,10 +19,17 @@ rank-0 coordinator protocol of ``controller.h:68-103``):
 Steps 2 and 4 are the JAX package's star, carried by a control plane
 (``transport/control.py``: collectives on the gloo control group).  A
 shutdown requested on any rank travels up with its list and comes back in
-the verdict, so every rank stops in the same cycle.  Not ported yet
-(ROADMAP.md A1): the response cache and its mask fast path, the tree
-fan-out and negotiation fan-in, straggler detection and the stall
-inspector, Join.
+the verdict, so every rank stops in the same cycle.
+
+Join (``controller.cc:1030-1053``): a JOIN request adds its rank to the
+joined set, and a tensor is ready once its requesting ranks plus the joined
+ones cover the world; the joined ranks contribute zeros to an allreduce
+(``core/state.py``), while a broadcast, allgather or alltoall with joined
+ranks is an ERROR.  The JOIN response goes out once every rank has joined.
+
+Not ported yet (ROADMAP.md A1): the response cache and its mask fast path,
+the tree fan-out and negotiation fan-in, straggler detection and the stall
+inspector.
 """
 
 from __future__ import annotations
@@ -45,11 +52,16 @@ from .messages import (
 
 log = get_logger("horovod_tpu_torch.controller")
 
-#: The operations the port negotiates so far; both need one shape on
-#: every rank.
+JOIN_TENSOR_NAME = "__join__"
+BARRIER_TENSOR_NAME = "__barrier__"
+
 _RESPONSE_TYPE = {
     RequestType.ALLREDUCE: ResponseType.ALLREDUCE,
+    RequestType.ALLGATHER: ResponseType.ALLGATHER,
+    RequestType.BROADCAST: ResponseType.BROADCAST,
     RequestType.ADASUM: ResponseType.ADASUM,
+    RequestType.ALLTOALL: ResponseType.ALLTOALL,
+    RequestType.BARRIER: ResponseType.BARRIER,
 }
 
 
@@ -83,6 +95,10 @@ class Controller:
         self.stall_shutdown_secs = stall_shutdown_secs
         self._message_table: Dict[str, _TableEntry] = {}
         self._tally = itertools.count()
+        self._joined_ranks: Set[int] = set()
+        # An allgather's bytes for the fusion threshold, by tensor name:
+        # its response carries first dimensions only.
+        self._payload_bytes: Dict[str, int] = {}
 
     # ------------------------------------------------------------------
     # the per-cycle negotiation round
@@ -129,6 +145,16 @@ class Controller:
             for req in rl.requests:
                 if self._increment(req):
                     ready.append(req.tensor_name)
+        # A JOIN that lands after a tensor's last request from the ranks
+        # still active must complete that tensor too.
+        if self._joined_ranks:
+            ready_set = set(ready)
+            for name, entry in self._message_table.items():
+                if name in ready_set:
+                    continue
+                needed = self.topo.size - len(self._joined_ranks - entry.ranks)
+                if len(entry.ranks) >= needed:
+                    ready.append(name)
         ready = self._oldest_first(ready)
         responses = [self._construct_response(name) for name in ready]
         rlist = ResponseList(
@@ -140,16 +166,24 @@ class Controller:
 
     def _oldest_first(self, ready: List[str]) -> List[str]:
         """The cycle's completed tensors by first request (stable), so the
-        tensors that waited longest pack into the first fusion buckets."""
-        return sorted(ready, key=lambda n: self._message_table[n].first_seen)
+        tensors that waited longest pack into the first fusion buckets;
+        JOIN, which has no table entry, sorts first."""
+        table = self._message_table
+        return sorted(ready, key=lambda n: table[n].first_seen
+                      if n in table else -1)
 
     # ------------------------------------------------------------------
     # message table
     # ------------------------------------------------------------------
 
     def _increment(self, req: Request) -> bool:
-        """Tally one rank's readiness; True when every rank has requested
-        the tensor (``IncrementTensorCount``, ``controller.cc:1030-1053``)."""
+        """Tally one rank's readiness; True when the requesting ranks plus
+        the joined ones cover the world (``IncrementTensorCount``,
+        ``controller.cc:1030-1053``).  A JOIN completes when every rank has
+        joined."""
+        if req.request_type == RequestType.JOIN:
+            self._joined_ranks.add(req.request_rank)
+            return len(self._joined_ranks) == self.topo.size
         entry = self._message_table.get(req.tensor_name)
         if entry is None:
             entry = self._message_table[req.tensor_name] = _TableEntry(
@@ -160,20 +194,28 @@ class Controller:
             return False
         entry.ranks.add(req.request_rank)
         entry.requests.append(req)
-        return len(entry.ranks) >= self.topo.size
+        needed = self.topo.size - len(self._joined_ranks - entry.ranks)
+        return len(entry.ranks) >= needed
 
     # ------------------------------------------------------------------
     # response construction & validation
     # ------------------------------------------------------------------
 
     def _construct_response(self, name: str) -> Optional[Response]:
-        """Validate cross-rank consistency and emit the Response: the first
+        """Validate cross-rank consistency and emit the Response
+        (``ConstructResponse``, ``controller.cc:547-824``): the first
         disagreement in dtype, operation or scale factors (over every rank),
-        then in shape, becomes an ERROR response.  The texts are the JAX
-        package's."""
-        if not self._message_table.get(name):
+        then in shape, root rank or splits, becomes an ERROR response, as
+        does a broadcast, allgather or alltoall with joined ranks.  The
+        texts are the JAX package's."""
+        if name == JOIN_TENSOR_NAME or not self._message_table.get(name):
+            if len(self._joined_ranks) == self.topo.size:
+                self._joined_ranks.clear()
+                return Response(response_type=ResponseType.JOIN,
+                                tensor_names=[JOIN_TENSOR_NAME])
             return None
-        reqs = self._message_table.pop(name).requests
+        entry = self._message_table.pop(name)
+        reqs = entry.requests
         first = reqs[0]
         op = first.request_type
         error = None
@@ -191,11 +233,9 @@ class Controller:
                     or req.postscale_factor != first.postscale_factor):
                 error = f"Mismatched pre/postscale factors for {name}."
                 break
-        if error is None and op not in _RESPONSE_TYPE:
-            raise HorovodInternalError(
-                f"{op.name} arrives with a later slice of the port "
-                "(ROADMAP.md, queue A)")
-        if error is None:
+        tensor_sizes: List[int] = []
+        if error is None and op in (RequestType.ALLREDUCE, RequestType.ADASUM,
+                                    RequestType.BROADCAST):
             for req in reqs[1:]:
                 if req.tensor_shape != first.tensor_shape:
                     error = (f"Mismatched {op.name.lower()} tensor shapes for "
@@ -203,24 +243,102 @@ class Controller:
                              f"{first.tensor_shape}, rank {req.request_rank} "
                              f"has {req.tensor_shape}.")
                     break
+            tensor_sizes = [first.num_elements]
+        if error is None and op == RequestType.BROADCAST:
+            error = self._broadcast_error(name, reqs, entry)
+        if error is None and op == RequestType.ALLGATHER:
+            error = self._allgather_error(name, reqs)
+            if error is None:
+                tensor_sizes = [r.tensor_shape[0] if r.tensor_shape else 1
+                                for r in sorted(reqs,
+                                                key=lambda r: r.request_rank)]
+        if error is None and op == RequestType.ALLTOALL:
+            error = self._alltoall_error(name, reqs)
+            if error is None:
+                # The flattened N x N send-split matrix, row r = rank r's
+                # splits; rank k receives column k.
+                for req in sorted(reqs, key=lambda r: r.request_rank):
+                    tensor_sizes.extend(req.splits)
         if error is not None:
             return Response(response_type=ResponseType.ERROR,
                             tensor_names=[name], error_message=error)
+        if op == RequestType.ALLGATHER:
+            dim0 = first.tensor_shape[0] if first.tensor_shape else 1
+            inner_n = first.num_elements // max(1, dim0)
+            self._payload_bytes[name] = (sum(tensor_sizes) * inner_n
+                                         * first.tensor_type.itemsize)
         return Response(
             response_type=_RESPONSE_TYPE[op],
             tensor_names=[name],
             tensor_type=first.tensor_type,
-            tensor_sizes=[first.num_elements],
+            tensor_sizes=tensor_sizes,
             devices=sorted({r.device for r in reqs}),
             prescale_factor=first.prescale_factor,
             postscale_factor=first.postscale_factor,
+            last_joined_rank=min(self._joined_ranks)
+            if self._joined_ranks else -1,
         )
+
+    def _broadcast_error(self, name: str, reqs: List[Request],
+                         entry: _TableEntry) -> Optional[str]:
+        first = reqs[0]
+        for req in reqs[1:]:
+            if req.root_rank != first.root_rank:
+                return (f"Mismatched broadcast root ranks for {name}: "
+                        f"{first.root_rank} vs {req.root_rank}.")
+        # A joined rank has no tensor to receive into: Join supports
+        # allreduce only.
+        if len(entry.ranks) != self.topo.size:
+            return (f"broadcast for {name} cannot complete with joined "
+                    f"ranks (Join supports allreduce only).")
+        return None
+
+    def _allgather_error(self, name: str,
+                         reqs: List[Request]) -> Optional[str]:
+        """Every dimension but the first must agree on every rank."""
+        first = reqs[0]
+        for req in sorted(reqs, key=lambda r: r.request_rank):
+            if len(req.tensor_shape) != len(first.tensor_shape) or \
+                    req.tensor_shape[1:] != first.tensor_shape[1:]:
+                return (f"Mismatched allgather tensor shapes for {name}: "
+                        f"all dims but the first must match "
+                        f"({first.tensor_shape} vs {req.tensor_shape}).")
+        if len(reqs) != self.topo.size:
+            return (f"allgather for {name} cannot complete with joined "
+                    f"ranks (Join supports allreduce only, as in the "
+                    f"reference JoinOp).")
+        return None
+
+    def _alltoall_error(self, name: str,
+                        reqs: List[Request]) -> Optional[str]:
+        """Trailing dimensions agree, and each rank's splits have one entry
+        per rank and sum to its first dimension."""
+        first = reqs[0]
+        if len(reqs) != self.topo.size:
+            return f"alltoall for {name} cannot complete with joined ranks."
+        for req in sorted(reqs, key=lambda r: r.request_rank):
+            if len(req.tensor_shape) != len(first.tensor_shape) \
+                    or req.tensor_shape[1:] != first.tensor_shape[1:]:
+                return (f"Mismatched alltoall tensor shapes for {name}: all "
+                        f"dims but the first must match "
+                        f"({first.tensor_shape} vs {req.tensor_shape}).")
+            if len(req.splits) != self.topo.size:
+                return (f"alltoall splits for {name} must have one entry "
+                        f"per rank (rank {req.request_rank} sent "
+                        f"{len(req.splits)}).")
+            dim0 = req.tensor_shape[0] if req.tensor_shape else 0
+            if sum(req.splits) != dim0:
+                return (f"alltoall splits for {name} sum to "
+                        f"{sum(req.splits)} but first dimension is {dim0} "
+                        f"on rank {req.request_rank}.")
+        return None
 
     # ------------------------------------------------------------------
     # fusion
     # ------------------------------------------------------------------
 
-    _FUSIBLE = (ResponseType.ALLREDUCE, ResponseType.ADASUM)
+    _FUSIBLE = (ResponseType.ALLREDUCE, ResponseType.ADASUM,
+                ResponseType.ALLGATHER)
 
     @staticmethod
     def _fusion_compatible(a: Response, b: Response) -> bool:
@@ -233,7 +351,11 @@ class Controller:
     def _fuse_responses(self, responses: List[Response]) -> List[Response]:
         """FIFO scan with look-ahead (``FuseResponses``): pop the front
         response, then sweep the remaining ones for compatible responses to
-        pack under the threshold; incompatible ones seed their own buckets."""
+        pack under the threshold; incompatible ones seed their own buckets.
+        An allgather fuses whole per-rank blocks: each tensor adds ``size``
+        first dimensions to ``tensor_sizes``."""
+        payload = {r.tensor_names[0]: self._payload_bytes.pop(
+            r.tensor_names[0], None) for r in responses}
         fused: List[Response] = []
         pending = list(responses)
         while pending:
@@ -242,10 +364,15 @@ class Controller:
                 fused.append(resp)
                 continue
             itemsize = resp.tensor_type.itemsize
-            total = sum(resp.tensor_sizes) * itemsize
+
+            def payload_bytes(r: Response) -> int:
+                n = payload[r.tensor_names[0]]
+                return sum(r.tensor_sizes) * itemsize if n is None else n
+
+            total = payload_bytes(resp)
             rest: List[Response] = []
             for cand in pending:
-                cand_bytes = sum(cand.tensor_sizes) * itemsize
+                cand_bytes = payload_bytes(cand)
                 if (self._fusion_compatible(resp, cand)
                         and total + cand_bytes <= self.fusion_threshold):
                     resp.tensor_names.extend(cand.tensor_names)

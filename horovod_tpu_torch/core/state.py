@@ -8,6 +8,12 @@ controller, the tensor queue and the op chain; a background thread that
 wakes every cycle, runs one negotiation round and executes the agreed
 responses; framework threads enqueue named tensors with callbacks.
 
+Join (``operations.cc:1146-1170``): a rank that has joined executes every
+allreduce its peers negotiate without it, contributing zeros of the
+response's dtype and size, on the card when its peers' tensors are there,
+so that it takes the same plane as they do; ``enqueue_join`` returns an
+event set when every rank has joined.
+
 Device work completes on a finalizer thread: an op that queued CUDA work
 returns ``Status.in_progress()`` and the finalizer waits on the op's CUDA
 event before firing the entries' callbacks (reference
@@ -28,25 +34,58 @@ import atexit
 import queue
 import threading
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..backend.cuda import CudaAllreduce, NcclAllreduce, nccl_group
-from ..backend.host import HostAllreduce
+from ..backend.cuda import (
+    LOCAL,
+    Allgather,
+    Allreduce,
+    Alltoall,
+    Broadcast,
+    nccl_group,
+)
 from ..common import env as env_mod
 from ..common.exceptions import HorovodInternalError
 from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology, from_env
 from ..transport.control import ControlPlane, gloo_group
 from ..transport.store import Store
-from .controller import Controller
+from .controller import BARRIER_TENSOR_NAME, JOIN_TENSOR_NAME, Controller
 from .messages import DataType, Request, RequestType, Response, ResponseType
 from .operation_manager import OperationManager
 from .tensor_queue import Status, TensorQueue, TensorTableEntry
 
 log = get_logger("horovod_tpu_torch.state")
+
+#: Per response type, its op (``_register_default_ops``,
+#: ``horovod_tpu/core/state.py:509-545``).
+_OPS = {
+    ResponseType.ALLREDUCE: Allreduce,
+    ResponseType.BROADCAST: Broadcast,
+    ResponseType.ALLGATHER: Allgather,
+    ResponseType.ALLTOALL: Alltoall,
+}
+
+
+def register_ops(manager: OperationManager, topo: ProcessTopology,
+                 device: torch.device, plane: str, control_group=None,
+                 device_group=None) -> None:
+    """Each collective's op: at size 1 the local one; at size > 1 the
+    device plane's on ``device_group`` when ``plane`` is it, then the host
+    plane's on ``control_group``, which takes what the device plane's
+    leaves (``backend.cuda.plane_takes``)."""
+    if topo.size == 1:
+        planes = [(LOCAL, None)]
+    else:
+        planes = [(env_mod.PLANE_HOST, control_group)]
+        if plane == env_mod.PLANE_NCCL:
+            planes.insert(0, (env_mod.PLANE_NCCL, device_group))
+    for rtype, op in _OPS.items():
+        for name, group in planes:
+            manager.register(rtype, op(topo, device, name, group))
 
 
 class HorovodGlobalState:
@@ -73,6 +112,9 @@ class HorovodGlobalState:
         self.plane = env_mod.PLANE_HOST
         self.control_group = None
         self.nccl_group = None
+        # Set by enqueue_join; the JOIN response (or the loop's end) sets
+        # and clears it.
+        self.join_event: Optional[threading.Event] = None
 
     # ------------------------------------------------------------------
 
@@ -194,16 +236,8 @@ class HorovodGlobalState:
             stall_shutdown_secs=env_mod.get_float(
                 env_mod.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS,
                 env_mod.DEFAULT_STALL_SHUTDOWN_TIME_SECONDS))
-        # One op per size and plane; each enabled() reads only the size,
-        # so every rank makes the same choice.
-        self.op_manager.register(ResponseType.ALLREDUCE,
-                                 CudaAllreduce(topo, self.device))
-        if topo.size > 1:
-            self.op_manager.register(
-                ResponseType.ALLREDUCE,
-                NcclAllreduce(topo, self.device, self.nccl_group)
-                if self.plane == env_mod.PLANE_NCCL
-                else HostAllreduce(topo, self.device, self.control_group))
+        register_ops(self.op_manager, topo, self.device, self.plane,
+                     self.control_group, self.nccl_group)
         self._finalizer = threading.Thread(
             target=self._finalizer_loop, name="horovod-finalizer", daemon=True)
         self._finalizer.start()
@@ -264,11 +298,20 @@ class HorovodGlobalState:
 
     def _perform_operation(self, response: Response) -> None:
         """``PerformOperation`` analog (``operations.cc:256-336``)."""
+        if response.response_type == ResponseType.JOIN:
+            self._release_join()
+            return
         entries = self.tensor_queue.get_entries_for_response(response)
         if response.response_type == ResponseType.ERROR:
             for e in entries:
                 self._fire_callback(e, Status.error(response.error_message))
             return
+        if response.response_type == ResponseType.BARRIER:
+            for e in entries:
+                self._fire_callback(e, Status.OK())
+            return
+        if len(entries) != len(response.tensor_names):
+            entries = self._zero_substituted(response, entries)
         try:
             status = self.op_manager.execute(response, entries)
         except HorovodInternalError as e:
@@ -282,6 +325,34 @@ class HorovodGlobalState:
         for e in entries:
             self._fire_callback(e, status)
 
+    def _zero_substituted(self, response: Response,
+                          entries: List[TensorTableEntry]
+                          ) -> List[TensorTableEntry]:
+        """The response's entries in its order, with zeros for each tensor
+        this rank never submitted (reference ``tensor_queue.h:39-41``)."""
+        by_name = {e.tensor_name: e for e in entries}
+        on_card = self.device.type == "cuda" and \
+            any(d >= 0 for d in response.devices)
+        aligned = []
+        for name, n in zip(response.tensor_names, response.tensor_sizes):
+            if name in by_name:
+                aligned.append(by_name[name])
+                continue
+            zeros = torch.zeros(n, dtype=response.tensor_type.to_torch(),
+                                device=self.device if on_card else "cpu")
+            device, ready_event, ready_stream = self._stage_tensor(zeros)
+            aligned.append(TensorTableEntry(
+                tensor_name=name, tensor=zeros, device=device,
+                prescale_factor=response.prescale_factor,
+                postscale_factor=response.postscale_factor,
+                ready_event=ready_event, ready_stream=ready_stream))
+        return aligned
+
+    def _release_join(self) -> None:
+        event, self.join_event = self.join_event, None
+        if event is not None:
+            event.set()
+
     def _finalizer_loop(self) -> None:
         while True:
             entries = self._finalizer_queue.get()
@@ -292,7 +363,7 @@ class HorovodGlobalState:
                     e.done_event.synchronize()
                 status = Status.OK()
             except RuntimeError as err:
-                status = Status.error(f"CUDA allreduce failed: {err}")
+                status = Status.error(f"CUDA collective failed: {err}")
             for e in entries:
                 self._fire_callback(e, status)
 
@@ -311,6 +382,8 @@ class HorovodGlobalState:
             entry = self.tensor_queue.remove(name)
             if entry is not None:
                 self._fire_callback(entry, Status.error(msg))
+        # A thread blocked in join() must not wait forever either.
+        self._release_join()
 
     # ------------------------------------------------------------------
     # framework-facing enqueue API (EnqueueTensor*, operations.cc:942-1170)
@@ -344,6 +417,24 @@ class HorovodGlobalState:
                 "Horovod background loop is not running (shut down or "
                 "failed); reinitialize before submitting collectives")
 
+    def _enqueue(self, name: str, tensor: torch.Tensor,
+                 callback: Callable[[Status, TensorTableEntry], None],
+                 request_type: RequestType,
+                 output: Optional[torch.Tensor] = None, **fields) -> None:
+        """Queue a named tensor's entry and its request; ``fields`` (scale
+        factors, root rank, splits) go into both."""
+        self._check_initialized()
+        device, ready_event, ready_stream = self._stage_tensor(tensor)
+        entry = TensorTableEntry(
+            tensor_name=name, tensor=tensor, output=output, callback=callback,
+            request_type=request_type, device=device,
+            ready_event=ready_event, ready_stream=ready_stream, **fields)
+        req = Request(
+            request_rank=self.topo.rank, request_type=request_type,
+            tensor_name=name, tensor_type=DataType.from_torch(tensor.dtype),
+            tensor_shape=list(tensor.shape), device=device, **fields)
+        self.tensor_queue.add(entry, req)
+
     def enqueue_allreduce(self, name: str, tensor: torch.Tensor,
                           callback: Callable[[Status, TensorTableEntry], None],
                           prescale_factor: float = 1.0,
@@ -351,19 +442,78 @@ class HorovodGlobalState:
                           output: Optional[torch.Tensor] = None) -> None:
         """Queue a named allreduce; ``output`` is where the result goes
         (the input itself for the in-place flavors)."""
+        self._enqueue(name, tensor, callback, RequestType.ALLREDUCE, output,
+                      prescale_factor=prescale_factor,
+                      postscale_factor=postscale_factor)
+
+    def enqueue_broadcast(self, name: str, tensor: torch.Tensor,
+                          root_rank: int,
+                          callback: Callable[[Status, TensorTableEntry], None],
+                          output: Optional[torch.Tensor] = None) -> None:
+        """Queue a named broadcast from ``root_rank``; ``output`` as for
+        :meth:`enqueue_allreduce`."""
+        self._enqueue(name, tensor, callback, RequestType.BROADCAST, output,
+                      root_rank=root_rank)
+
+    def enqueue_allgather(self, name: str, tensor: torch.Tensor,
+                          callback: Callable[[Status, TensorTableEntry], None]
+                          ) -> None:
+        """Queue a named allgather along the first dimension (a 0-d
+        tensor counts as one row)."""
+        if tensor.dim() == 0:
+            tensor = tensor.reshape(1)
+        self._enqueue(name, tensor, callback, RequestType.ALLGATHER)
+
+    def enqueue_alltoall(self, name: str, tensor: torch.Tensor,
+                         splits: Optional[List[int]],
+                         callback: Callable[[Status, TensorTableEntry], None]
+                         ) -> None:
+        """Queue a named alltoall: ``splits[r]`` rows go to rank r (equal
+        shares when None)."""
         self._check_initialized()
-        device, ready_event, ready_stream = self._stage_tensor(tensor)
-        entry = TensorTableEntry(
-            tensor_name=name, tensor=tensor, output=output, callback=callback,
-            request_type=RequestType.ALLREDUCE, device=device,
-            prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-            ready_event=ready_event, ready_stream=ready_stream)
-        req = Request(
-            request_rank=self.topo.rank, request_type=RequestType.ALLREDUCE,
-            tensor_name=name, tensor_type=DataType.from_torch(tensor.dtype),
-            tensor_shape=list(tensor.shape), device=device,
-            prescale_factor=prescale_factor, postscale_factor=postscale_factor)
-        self.tensor_queue.add(entry, req)
+        if tensor.dim() == 0:
+            tensor = tensor.reshape(1)
+        if splits is None:
+            if tensor.shape[0] % self.topo.size != 0:
+                raise ValueError(
+                    f"alltoall first dim {tensor.shape[0]} not divisible by "
+                    f"size {self.topo.size}; pass explicit splits")
+            splits = [tensor.shape[0] // self.topo.size] * self.topo.size
+        self._enqueue(name, tensor, callback, RequestType.ALLTOALL,
+                      splits=[int(n) for n in splits])
+
+    def enqueue_join(self) -> threading.Event:
+        """This rank is done with its data: it contributes zeros until every
+        rank has joined (``EnqueueJoin``, ``operations.cc:1146-1170``).  The
+        event is set then; at size 1 at once."""
+        self._check_initialized()
+        event = threading.Event()
+        if self.topo.size == 1:
+            event.set()
+            return event
+        self.join_event = event
+        try:
+            # JOIN carries no entry: its request goes in alone.
+            self.tensor_queue.push_message(Request(
+                request_rank=self.topo.rank, request_type=RequestType.JOIN,
+                tensor_name=JOIN_TENSOR_NAME))
+        except HorovodInternalError:
+            self.join_event = None
+            raise
+        return event
+
+    def enqueue_barrier(self, callback: Callable[[Status, TensorTableEntry],
+                                                 None],
+                        name: Optional[str] = None) -> None:
+        """Queue a barrier: its callback fires once every rank (or joined
+        rank) has reached it."""
+        self._check_initialized()
+        name = name or BARRIER_TENSOR_NAME
+        self.tensor_queue.add(
+            TensorTableEntry(tensor_name=name, callback=callback,
+                             request_type=RequestType.BARRIER),
+            Request(request_rank=self.topo.rank,
+                    request_type=RequestType.BARRIER, tensor_name=name))
 
     # ------------------------------------------------------------------
 

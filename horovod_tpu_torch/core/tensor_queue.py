@@ -56,6 +56,10 @@ class TensorTableEntry:
     request_type: RequestType = RequestType.ALLREDUCE
     prescale_factor: float = 1.0
     postscale_factor: float = 1.0
+    root_rank: int = -1  # broadcast
+    # Alltoall: the rows sent to, and received from, each rank.
+    splits: Optional[List[int]] = None
+    received_splits: Optional[List[int]] = None
     # CUDA tensors: an event recorded on the enqueuing caller's stream (the
     # reference's ready event), that stream, and the event the op records
     # when its work is queued (the finalizer waits on it).
@@ -79,20 +83,32 @@ class TensorQueue:
     def set_wake_event(self, event: threading.Event) -> None:
         self._wake = event
 
+    def _check_open(self) -> None:
+        if self._closed:
+            # The background loop has exited and drained the table; an add
+            # after that point would strand its waiter forever.
+            raise HorovodInternalError(
+                "Horovod background loop is not running (shut down or "
+                "failed); reinitialize before submitting collectives")
+
     def add(self, entry: TensorTableEntry, request: Request) -> None:
         with self._lock:
-            if self._closed:
-                # The background loop has exited and drained the table; an
-                # add after that point would strand its waiter forever.
-                raise HorovodInternalError(
-                    "Horovod background loop is not running (shut down or "
-                    "failed); reinitialize before submitting collectives")
+            self._check_open()
             if entry.tensor_name in self._table:
                 raise DuplicateNameError(
                     f"tensor {entry.tensor_name!r} already in flight; collective "
                     f"names must be unique until the previous op completes")
             self._table[entry.tensor_name] = entry
             self._pending.append(request)
+        if self._wake is not None:
+            self._wake.set()
+
+    def push_message(self, request: Request) -> None:
+        """Queue a request that has no entry (JOIN) ahead of the pending
+        ones, as the JAX package's ``push_messages`` does."""
+        with self._lock:
+            self._check_open()
+            self._pending.insert(0, request)
         if self._wake is not None:
             self._wake.set()
 
@@ -109,7 +125,8 @@ class TensorQueue:
             return out
 
     def get_entries_for_response(self, response: Response) -> List[TensorTableEntry]:
-        """Claim (remove) the entries a Response names."""
+        """Claim (remove) the entries a Response names; a name this rank
+        never enqueued (a joined rank's) has none."""
         with self._lock:
             return [self._table.pop(name) for name in response.tensor_names
                     if name in self._table]

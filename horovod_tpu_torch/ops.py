@@ -1,21 +1,26 @@
 """Eager collective API over torch tensors.
 
 Counterpart of ``horovod_tpu/frameworks/jax/ops.py`` with the torch surface
-of ``horovod_tpu/frameworks/torch/__init__.py:94-156`` (the reference's
+of ``horovod_tpu/frameworks/torch/__init__.py:94-195`` (the reference's
 ``horovod/torch/mpi_ops.py:85-630``): blocking and ``*_async`` allreduce,
-the in-place ``_`` flavors, ``poll`` and ``synchronize``.  Average is a
+broadcast and allgather, the in-place ``_`` flavors, ``alltoall``,
+``join``, ``barrier``, ``poll`` and ``synchronize``.  Average is a
 postscale of 1/size, like the reference (``operations.cc:953-956``).
-Allgather, broadcast, alltoall, join and barrier arrive with later slices
-(ROADMAP.md).
+
+The out-of-place flavors also take what the JAX bridge's ``_to_numpy``
+takes (numpy arrays, lists, Python scalars) and return CPU tensors for it;
+the in-place flavors write into the torch tensor they are given.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
+from .common.exceptions import HorovodInternalError
 from .core.handle_manager import HandleManager
 from .core.state import global_state
 from .core.tensor_queue import Status
@@ -55,6 +60,27 @@ def _resolve_op(average: Optional[bool], op: Optional[str]) -> str:
     return op
 
 
+def _as_tensor(tensor) -> torch.Tensor:
+    """A torch tensor as it is; an array-like as a new CPU tensor of the
+    dtype numpy gives it (float64 for Python floats, as in the JAX
+    bridge)."""
+    if isinstance(tensor, torch.Tensor):
+        return tensor
+    return torch.from_numpy(np.array(tensor))
+
+
+def _submit(enqueue) -> int:
+    """Allocate a handle and run ``enqueue(callback)``; a call that never
+    made it into the queue releases its handle and re-raises."""
+    handle = _handles.allocate()
+    try:
+        enqueue(_callback(handle))
+    except BaseException:
+        _handles.discard(handle)
+        raise
+    return handle
+
+
 def _callback(handle: int):
     def cb(status: Status, entry):
         _handles.mark_done(handle, status, entry.output if status.ok else None)
@@ -69,17 +95,9 @@ def _allreduce_async(tensor: torch.Tensor, output: Optional[torch.Tensor],
     if _resolve_op(average, op) == Average:
         postscale_factor = postscale_factor / state.topo.size
     name = _auto_name("allreduce", name)
-    handle = _handles.allocate()
-    try:
-        state.enqueue_allreduce(name, tensor, _callback(handle),
-                                prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor,
-                                output=output)
-    except BaseException:
-        # Never made it into the queue: release the handle, then re-raise.
-        _handles.discard(handle)
-        raise
-    return handle
+    return _submit(lambda cb: state.enqueue_allreduce(
+        name, _as_tensor(tensor), cb, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, output=output))
 
 
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -117,6 +135,99 @@ def allreduce_(tensor: torch.Tensor, average: Optional[bool] = None,
     return synchronize(allreduce_async_(
         tensor, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor))
+
+
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
+    """Start an allgather along the first dimension; the ranks' first
+    dimensions may differ, the others must agree."""
+    state = global_state()
+    name = _auto_name("allgather", name)
+    return _submit(lambda cb: state.enqueue_allgather(
+        name, _as_tensor(tensor), cb))
+
+
+def allgather(tensor: torch.Tensor, name: Optional[str] = None
+              ) -> torch.Tensor:
+    """Every rank's tensor, concatenated along the first dimension in rank
+    order."""
+    return synchronize(allgather_async(tensor, name=name))
+
+
+def _broadcast_async(tensor, output, root_rank: int,
+                     name: Optional[str]) -> int:
+    state = global_state()
+    name = _auto_name("broadcast", name)
+    return _submit(lambda cb: state.enqueue_broadcast(
+        name, _as_tensor(tensor), root_rank, cb, output=output))
+
+
+def broadcast_async(tensor: torch.Tensor, root_rank: int,
+                    name: Optional[str] = None) -> int:
+    """Start a broadcast of ``root_rank``'s tensor; :func:`synchronize`
+    returns a new tensor."""
+    return _broadcast_async(tensor, None, root_rank, name)
+
+
+def broadcast(tensor: torch.Tensor, root_rank: int,
+              name: Optional[str] = None) -> torch.Tensor:
+    return synchronize(broadcast_async(tensor, root_rank, name=name))
+
+
+def broadcast_async_(tensor: torch.Tensor, root_rank: int,
+                     name: Optional[str] = None) -> int:
+    """In-place flavor: ``root_rank``'s values are written into
+    ``tensor``."""
+    return _broadcast_async(tensor, tensor, root_rank, name)
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int,
+               name: Optional[str] = None) -> torch.Tensor:
+    return synchronize(broadcast_async_(tensor, root_rank, name=name))
+
+
+def alltoall(tensor: torch.Tensor, splits: Optional[List[int]] = None,
+             name: Optional[str] = None) -> torch.Tensor:
+    """Send ``splits[r]`` rows to rank r (equal shares when None) and return
+    the rows received, in rank order."""
+    state = global_state()
+    name = _auto_name("alltoall", name)
+    return synchronize(_submit(lambda cb: state.enqueue_alltoall(
+        name, _as_tensor(tensor), splits, cb)))
+
+
+def join() -> int:
+    """Block until every rank has joined; meanwhile this rank contributes
+    zeros to the allreduces of the others (reference ``hvd.join``,
+    ``operations.cc:1146-1170``).  Returns 0, as the JAX bridge does."""
+    global_state().enqueue_join().wait()
+    return 0
+
+
+def barrier(name: Optional[str] = None) -> None:
+    """Block until every rank has reached this barrier; raises on an error
+    status."""
+    done = threading.Event()
+    status_box = []
+
+    def cb(status: Status, entry) -> None:
+        status_box.append(status)
+        done.set()
+
+    global_state().enqueue_barrier(cb, name=_auto_name("barrier", name))
+    done.wait()
+    if not status_box[0].ok:
+        raise HorovodInternalError(status_box[0].error_message)
+
+
+def size_or_one() -> int:
+    """World size, or 1 when the runtime is not initialized."""
+    state = global_state()
+    return state.topo.size if state.topo is not None else 1
+
+
+def initialized() -> bool:
+    """True when ``hvd.init()`` has completed and the runtime is live."""
+    return global_state().topo is not None
 
 
 def poll(handle: int) -> bool:
