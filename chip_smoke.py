@@ -65,7 +65,15 @@ Phases, in order; any failure raises and the exit code is not 0:
     within ``NP2_GRAD_REL_RMS`` of the mean of both ranks' local gradients
     (a plain backward on the same shard), while the same mean summed in
     bf16 (a narrow plane, the control) lies outside it.  A worker that
-    fails fails the run.
+    fails fails the run.  The response cache is on (the default): each
+    worker reports per step its serialized requests, cache hits and
+    misses, mask-only frames sent, fast cycles, cache assignments and
+    evictions received, and the wall ms spent in
+    ``compute_response_list``; from step 2 on rank 1 must send no
+    serialized request and hit the cache 161 times.  The phase runs again
+    with ``--cache-capacity 0`` and must end with the same parameter hash,
+    bit for bit, after every step (at two ranks the sum ``a + b`` does not
+    depend on how the responses are bucketed).
 11. BERT-large at np=2 (``--worker np2-bert``), the repo's example script's
     start-up: full BERT-large on each rank from its own seed
     (``1234 + rank``), local AdamW steps on its own batch (one on rank 0,
@@ -87,12 +95,24 @@ Phases, in order; any failure raises and the exit code is not 0:
     launches of each flash kernel and 292 allreduced gradients per step;
     finite losses, 5 allgathered losses equal on both ranks, the
     alltoall's rows and the gathered objects as the arithmetic gives them.
+    The response cache is on: the start-up broadcasts fill it past its
+    1024 entries, so the gradients' first step evicts (their count is
+    printed), and rank 1's second step must send no serialized request.
+12. Stall at np=2 (``--worker np2-stall``), both ranks on the card, with
+    ``--stall-check-warning-time-seconds 1`` and
+    ``--stall-check-shutdown-time-seconds 3``: five steps of two named
+    allreduces on the card warm the cache, then rank 0 submits ``stuck``,
+    which rank 1 never submits.  Rank 0's handle must raise
+    ``HorovodInternalError`` naming ``stuck`` and missing ranks ``[1]``
+    within ``STALL_ABORT_S``, rank 1's next enqueue the same text, both
+    flight-recorder dumps must name it, and the job must end.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``
-and ``--worker nccl-np2`` are the launched workers of phases 10, 11 and 9.
+``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
+``--worker np2-stall DIR`` and ``--worker nccl-np2`` are the launched
+workers of phases 10, 11, 12 and 9.
 """
 
 from __future__ import annotations
@@ -117,8 +137,11 @@ import torch.nn.functional as F
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.backend import cuda as cuda_backend
 from horovod_tpu_torch.common.env import PLANE_HOST, PLANE_NCCL
+from horovod_tpu_torch.common.exceptions import HorovodInternalError
 from horovod_tpu_torch.common.topology import ProcessTopology
+from horovod_tpu_torch.core import controller as controller_mod
 from horovod_tpu_torch.core.messages import DataType, Response, ResponseType
+from horovod_tpu_torch.core.state import global_state
 from horovod_tpu_torch.core.tensor_queue import TensorTableEntry
 from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
@@ -250,6 +273,14 @@ NP2_BERT_WATCHED = ("layer_0.attn.qkv.kernel", "layer_23.ffn_out.kernel",
                     "ln_f.scale")
 # Rows each rank sends to rank 0 and rank 1 in the closing alltoall.
 NP2_BERT_SPLITS = ([1, 2], [3, 1])
+# The stall phase: shutdown time, and the limit on the abort's arrival.
+STALL_SHUTDOWN_S = 3
+STALL_ABORT_S = 15
+STALL_TIMEOUT = 120
+# The controller's counters each np=2 worker reports per step.
+NEGOTIATION_COUNTERS = ("serialized_request_count", "cache_hit_count",
+                        "cache_miss_count", "mask_only_sent_count",
+                        "fast_cycle_count", "idle_fast_cycle_count")
 LAUNCH_TIMEOUT = 300
 REPO = Path(__file__).resolve().parent
 
@@ -758,12 +789,12 @@ def phase_nccl_one_rank() -> dict:
 
 
 def launch_job(np_: int, worker: list, timeout: float,
-               extra_env: dict = None):
+               extra_env: dict = None, launcher_args: list = ()):
     """Runs this script's ``--worker`` mode through the port's launcher in
     a session of its own, killed whole if it outlasts ``timeout``."""
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
-           str(np_), sys.executable, str(REPO / "chip_smoke.py"),
-           "--worker", *worker]
+           str(np_), *launcher_args, sys.executable,
+           str(REPO / "chip_smoke.py"), "--worker", *worker]
     proc = subprocess.Popen(
         cmd, cwd=str(REPO), text=True,
         env={**os.environ, **(extra_env or {})}, stdout=subprocess.PIPE,
@@ -818,6 +849,43 @@ def time_host_allreduce() -> list:
     return op_seconds
 
 
+def negotiation_probe() -> dict:
+    """Wraps the controller's round in this worker: the wall seconds spent
+    in ``compute_response_list`` and the cache assignments and evictions in
+    the ``ResponseList``s it returned (a mask-only cycle carries none),
+    summed into the returned dict."""
+    acc = {"seconds": 0.0, "assignments": 0, "evictions": 0}
+    compute = controller_mod.Controller.compute_response_list
+
+    def timed(self, requests, should_shutdown=False):
+        t = time.perf_counter()
+        try:
+            rl = compute(self, requests, should_shutdown)
+        finally:
+            acc["seconds"] += time.perf_counter() - t
+        acc["assignments"] += len(rl.cache_assignments)
+        acc["evictions"] += len(rl.evicted_bits)
+        return rl
+
+    controller_mod.Controller.compute_response_list = timed
+    return acc
+
+
+def negotiation_snapshot(probe: dict) -> dict:
+    """The controller's counters and the probe's sums, for a per-step
+    difference."""
+    ctl = global_state().controller
+    return {**{k: getattr(ctl, k) for k in NEGOTIATION_COUNTERS},
+            "negotiation_ms": 1e3 * probe["seconds"],
+            "assignments": probe["assignments"],
+            "evictions": probe["evictions"]}
+
+
+def negotiation_delta(before: dict, probe: dict) -> dict:
+    after = negotiation_snapshot(probe)
+    return {k: after[k] - before[k] for k in after}
+
+
 def np2_worker(out_dir: str) -> None:
     """One rank of the np=2 ResNet-50 job: 3 steps, with the counts, times,
     hashes and watched gradients of each written to ``out_dir``."""
@@ -846,6 +914,7 @@ def np2_worker(out_dir: str) -> None:
     batch = {"x": x[shard].contiguous(), "y": y[shard].contiguous()}
     del x, y
     op_seconds = time_host_allreduce()
+    probe = negotiation_probe()
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
     for _ in range(NP2_STEPS):
@@ -857,11 +926,13 @@ def np2_worker(out_dir: str) -> None:
         launches = conv_bn_stats.LAUNCHES
         counts = dict(cuda_backend.stats)
         op_seconds[0] = 0.0
+        negotiation = negotiation_snapshot(probe)
         t0 = time.perf_counter()
         loss = train_step(model, opt, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         steps.append({
+            **negotiation_delta(negotiation, probe),
             "loss": float(loss), "ms": ms, "plane_ms": 1e3 * op_seconds[0],
             "launches": conv_bn_stats.LAUNCHES - launches,
             **{k: cuda_backend.stats[k] - counts[k] for k in counts},
@@ -877,19 +948,25 @@ def np2_worker(out_dir: str) -> None:
     print("NP2_DONE", rank, flush=True)
 
 
-def phase_np2_resnet(card_line: str) -> dict:
+def run_np2_resnet(launcher_args: list = ()) -> tuple:
     # Inside the checkout (``_runs/`` is gitignored), deleted afterwards.
     (REPO / "_runs").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="np2_resnet.",
                                      dir=REPO / "_runs") as out_dir:
         t0 = time.perf_counter()
         code, out, err = launch_job(2, ["np2-resnet", out_dir],
-                                    LAUNCH_TIMEOUT)
+                                    LAUNCH_TIMEOUT,
+                                    launcher_args=launcher_args)
         seconds = time.perf_counter() - t0
         if code != 0:
-            raise AssertionError(f"np=2 ResNet-50 job failed with exit "
-                                 f"{code}:\n{out}\n{err}")
-        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+            raise AssertionError(f"np=2 ResNet-50 job {launcher_args} failed "
+                                 f"with exit {code}:\n{out}\n{err}")
+        return seconds, [torch.load(Path(out_dir) / f"rank{r}.pt")
+                         for r in range(2)]
+
+
+def phase_np2_resnet(card_line: str) -> dict:
+    seconds, ranks = run_np2_resnet()
     # The control: the same mean summed in bf16, as a narrow plane would.
     worst, narrowest = 0.0, math.inf
     for step in range(NP2_STEPS):
@@ -915,13 +992,40 @@ def phase_np2_resnet(card_line: str) -> dict:
                     f"the local ones, relative RMS {err!r} (limit "
                     f"{NP2_GRAD_REL_RMS}); the bf16 sum's {narrow!r} must "
                     f"exceed the limit")
+    # The cache: from step 2 on, rank 1's gradients go up as bits only.
+    for step, s in enumerate(ranks[1]["steps"][1:], start=1):
+        if s["serialized_request_count"] != 0 or \
+                s["cache_hit_count"] != NP2_PARAMS:
+            raise AssertionError(
+                f"step {step}: rank 1 sent {s['serialized_request_count']} "
+                f"serialized requests and hit the cache "
+                f"{s['cache_hit_count']} times (expected 0 and {NP2_PARAMS})")
+    # The same job with the cache off: the same parameters, bit for bit.
+    off_seconds, off = run_np2_resnet(["--cache-capacity", "0"])
+    for step in range(NP2_STEPS):
+        for r in range(2):
+            on_hash = ranks[r]["steps"][step]["hash"]
+            off_hash = off[r]["steps"][step]["hash"]
+            if on_hash != off_hash:
+                raise AssertionError(
+                    f"step {step} rank {r}: parameters with the cache on "
+                    f"({on_hash}) and off ({off_hash}) differ")
+        for r in range(2):
+            s = off[r]["steps"][step]
+            assert s["launches"] == LAUNCHES_PER_STEP, (r, step, s)
+            assert s["allreduce_tensors"] == NP2_PARAMS, (r, step, s)
+            assert s["cache_hit_count"] == 0, (r, step, s)
+    keys = ("loss", "ms", "plane_ms", "launches", "allreduce_tensors",
+            "allreduce_responses", "negotiation_ms", "assignments",
+            "evictions") + NEGOTIATION_COUNTERS
     summary = {
-        "seconds": seconds, "worst_grad_rel_rms": worst,
-        "narrow_control_rel_rms": narrowest,
+        "seconds": seconds, "off_seconds": off_seconds,
+        "worst_grad_rel_rms": worst, "narrow_control_rel_rms": narrowest,
         "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
-        "per_rank": [{k: [s[k] for s in r["steps"]] for k in (
-            "loss", "ms", "plane_ms", "launches", "allreduce_tensors",
-            "allreduce_responses")} for r in ranks]}
+        "per_rank": [{k: [s[k] for s in r["steps"]] for k in keys}
+                     for r in ranks],
+        "off_per_rank": [{k: [s[k] for s in r["steps"]] for k in keys}
+                         for r in off]}
     for r, per in enumerate(summary["per_rank"]):
         print(f"np2 main path: rank {r} ResNet-50 batch {NP2_BATCH} "
               f"{IMAGE}x{IMAGE} bf16, host plane, ms/step "
@@ -933,6 +1037,21 @@ def phase_np2_resnet(card_line: str) -> dict:
               f"{per['allreduce_responses']} responses per step, peak "
               f"{summary['peak_mem_gb'][r]:.1f} GB [{card_line}]",
               flush=True)
+    for label, runs in (("cache on", summary["per_rank"]),
+                        ("cache off", summary["off_per_rank"])):
+        for r, per in enumerate(runs):
+            print(f"np2 negotiation ({label}): rank {r} ms in "
+                  f"compute_response_list per step "
+                  f"{[round(v, 1) for v in per['negotiation_ms']]}, "
+                  f"serialized requests {per['serialized_request_count']}, "
+                  f"cache hits {per['cache_hit_count']}, misses "
+                  f"{per['cache_miss_count']}, mask-only frames sent "
+                  f"{per['mask_only_sent_count']}, fast cycles "
+                  f"{per['fast_cycle_count']} (idle "
+                  f"{per['idle_fast_cycle_count']}), assignments "
+                  f"{per['assignments']}, evictions {per['evictions']}, "
+                  f"ms/step {[round(v, 1) for v in per['ms']]} "
+                  f"[{card_line}]", flush=True)
     return summary
 
 
@@ -996,12 +1115,15 @@ def np2_bert_worker(out_dir: str) -> None:
                   for s in opt.state_dict()["state"].values()
                   for v in s.values() if isinstance(v, torch.Tensor))
     counts = dict(cuda_backend.stats)
+    probe = negotiation_probe()
     torch.cuda.synchronize()
+    negotiation = negotiation_snapshot(probe)
     t0 = time.perf_counter()
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     torch.cuda.synchronize()
     out["broadcast_s"] = time.perf_counter() - t0
+    out["broadcast_negotiation"] = negotiation_delta(negotiation, probe)
     out["broadcast_bytes"] = nbytes
     out["broadcast_responses"] = {k: cuda_backend.stats[k] - counts[k]
                                   for k in counts if cuda_backend.stats[k]
@@ -1028,10 +1150,12 @@ def np2_bert_worker(out_dir: str) -> None:
         launches = dict(fa.LAUNCHES)
         counts = dict(cuda_backend.stats)
         op_seconds[0] = 0.0
+        negotiation = negotiation_snapshot(probe)
         t0 = time.perf_counter()
         loss = train_step(model, opt, batch)
         torch.cuda.synchronize()
         steps.append({
+            **negotiation_delta(negotiation, probe),
             "loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
             "plane_ms": 1e3 * op_seconds[0],
             **{k: fa.LAUNCHES[k] - launches[k] for k in FLASH_KERNELS},
@@ -1149,6 +1273,31 @@ def phase_np2_bert(card_line: str) -> dict:
             raise AssertionError(f"rank {r} alltoall: {rk['alltoall']} vs "
                                  f"{expected}")
     assert torch.equal(r0["losses"], r1["losses"])
+    # The cache: the broadcasts' names overfill it, the gradients' first
+    # step evicts, and rank 1's second step sends bits only.
+    evictions = sum(s["evictions"] for s in r0["steps"]) + \
+        r0["broadcast_negotiation"]["evictions"]
+    if r1["steps"][1]["serialized_request_count"] != 0:
+        raise AssertionError(
+            f"rank 1's second step sent "
+            f"{r1['steps'][1]['serialized_request_count']} serialized "
+            f"requests (expected 0)")
+    for r, rk in enumerate(ranks):
+        b = rk["broadcast_negotiation"]
+        print(f"np2 BERT negotiation: rank {r} start-up broadcasts: "
+              f"serialized requests {b['serialized_request_count']}, "
+              f"assignments {b['assignments']}, evictions {b['evictions']}, "
+              f"{b['negotiation_ms']:.1f} ms in compute_response_list; "
+              f"per step: serialized requests "
+              f"{[s['serialized_request_count'] for s in rk['steps']]}, "
+              f"cache hits {[s['cache_hit_count'] for s in rk['steps']]}, "
+              f"misses {[s['cache_miss_count'] for s in rk['steps']]}, "
+              f"fast cycles {[s['fast_cycle_count'] for s in rk['steps']]}, "
+              f"assignments {[s['assignments'] for s in rk['steps']]}, "
+              f"evictions {[s['evictions'] for s in rk['steps']]}, ms in "
+              f"compute_response_list "
+              f"{[round(s['negotiation_ms'], 1) for s in rk['steps']]} "
+              f"[{card_line}]", flush=True)
     for r, rk in enumerate(ranks):
         per = rk["steps"]
         print(f"np2 BERT: rank {r} BERT-large batch {NP2_BERT_BATCH} x "
@@ -1163,7 +1312,93 @@ def phase_np2_bert(card_line: str) -> dict:
               f"{rk['peak_mem_gb']:.1f} GB, worker {rk['seconds']:.1f}s "
               f"[{card_line}]", flush=True)
     return {"seconds": seconds, "worst_grad_rel_rms": worst,
-            "control_rel_rms": control}
+            "control_rel_rms": control, "evictions": evictions}
+
+
+def np2_stall_worker(out_dir: str) -> None:
+    """One rank of the stall job: five steps of two named allreduces on
+    the card, then rank 0 submits ``stuck``, which rank 1 never submits."""
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    assert size == 2 and dev == torch.device("cuda", 0), (size, dev)
+    ctl = global_state().controller
+    sums = []
+    for step in range(5):
+        a = torch.full((1024,), float(rank + step), device=dev)
+        b = torch.full((7, 3), float(2 * rank + step), device=dev)
+        ha = hvd.allreduce_async(a, op=hvd.Sum, name="warm.a")
+        hb = hvd.allreduce_async(b, op=hvd.Sum, name="warm.b")
+        sums.append([float(hvd.synchronize(ha)[0]),
+                     float(hvd.synchronize(hb)[0, 0])])
+    out = {"sums": sums, "hits": ctl.cache_hit_count}
+    t0 = time.perf_counter()
+    if rank == 0:
+        handle = hvd.allreduce_async(torch.ones(3, device=dev), name="stuck")
+        try:
+            hvd.synchronize(handle)
+            out["error"] = ""
+        except HorovodInternalError as e:
+            out["error"] = str(e)
+    else:
+        out["loop_ended"] = global_state().shutdown_complete.wait(
+            STALL_TIMEOUT)
+        out["error"] = ""
+    out["abort_s"] = time.perf_counter() - t0
+    try:
+        hvd.allreduce(torch.ones(1, device=dev), name="after")
+        out["next_error"] = ""
+    except HorovodInternalError as e:
+        out["next_error"] = str(e)
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print("NP2_STALL_DONE", rank, flush=True)
+
+
+def phase_np2_stall(card_line: str) -> dict:
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_stall.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(
+            2, ["np2-stall", out_dir], STALL_TIMEOUT,
+            {"HOROVOD_FLIGHT_RECORDER_DIR": out_dir},
+            ["--stall-check-warning-time-seconds", "1",
+             "--stall-check-shutdown-time-seconds", str(STALL_SHUTDOWN_S)])
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 stall job failed with exit {code}:"
+                                 f"\n{out}\n{err}")
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        dumps = [json.loads((Path(out_dir) / "hvd_flight_recorder" /
+                             f"hvd_flight_recorder.rank{r}.json").read_text())
+                 for r in range(2)]
+    r0, r1 = ranks
+    want_sums = [[float(1 + 2 * s), float(2 + 2 * s)] for s in range(5)]
+    for r, rk in enumerate(ranks):
+        assert rk["sums"] == want_sums, (r, rk["sums"])
+    assert r1["hits"] >= 8, r1["hits"]
+    text = r0["error"]
+    if not (text.startswith("stall shutdown: tensor stuck incomplete for ")
+            and text.endswith("missing ranks [1]")):
+        raise AssertionError(f"rank 0's stuck handle: {text!r}\n{err}")
+    if r0["abort_s"] > STALL_ABORT_S:
+        raise AssertionError(f"the abort took {r0['abort_s']:.1f}s "
+                             f"(limit {STALL_ABORT_S}s)")
+    assert r1["loop_ended"] is True, r1
+    for r, rk in enumerate(ranks):
+        if rk["next_error"] != text:
+            raise AssertionError(f"rank {r}'s next enqueue raised "
+                                 f"{rk['next_error']!r}, not {text!r}")
+        assert text in dumps[r]["reason"], (r, dumps[r]["reason"])
+    print(f"np2 stall: rank 0's stuck handle raised after "
+          f"{r0['abort_s']:.2f}s (shutdown time {STALL_SHUTDOWN_S}s), rank "
+          f"1's loop ended after {r1['abort_s']:.2f}s, both ranks' next "
+          f"enqueue raised the same text: {text!r}; job {seconds:.1f}s "
+          f"(launch included) [{card_line}]", flush=True)
+    return {"seconds": seconds, "abort_s": r0["abort_s"], "text": text}
 
 
 def reset_counts() -> None:
@@ -1184,6 +1419,8 @@ def main() -> int:
             np2_worker(sys.argv[3])
         elif sys.argv[2:3] == ["np2-bert"]:
             np2_bert_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["np2-stall"]:
+            np2_stall_worker(sys.argv[3])
         elif sys.argv[2:3] == ["nccl-np2"]:
             nccl_np2_worker()
         else:
@@ -1281,8 +1518,9 @@ def main() -> int:
           f"across ranks after every step, applied gradients within "
           f"{np2['worst_grad_rel_rms']!r} relative RMS of the mean of the "
           f"local ones (limit {NP2_GRAD_REL_RMS}; the bf16-summed control "
-          f"at least {np2['narrow_control_rel_rms']!r}) [{card_line}]",
-          flush=True)
+          f"at least {np2['narrow_control_rel_rms']!r}); with the cache off "
+          f"({np2['off_seconds']:.1f}s) the same parameters, bit for bit, "
+          f"after every step [{card_line}]", flush=True)
 
     torch.cuda.empty_cache()
     reset_counts()
@@ -1296,7 +1534,13 @@ def main() -> int:
           f"step the applied gradient is within "
           f"{bert2['worst_grad_rel_rms']!r} of half its own (limit "
           f"{NP2_GRAD_REL_RMS}; unhalved control "
-          f"{bert2['control_rel_rms']!r}) [{card_line}]", flush=True)
+          f"{bert2['control_rel_rms']!r}); {bert2['evictions']} cache "
+          f"evictions [{card_line}]", flush=True)
+
+    stall = phase_np2_stall(card_line)
+    print(f"np2 stall: every rank stopped with the stall text in "
+          f"{stall['seconds']:.1f}s (launch included) [{card_line}]",
+          flush=True)
 
     timed = [r for r in rows if "ms" in r]
 

@@ -31,11 +31,37 @@ HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"  # float ms
 HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+# Response cache entries at the coordinator (LRU); 0 turns the cache and
+# its mask fast path off.  The cache runs only at size > 1.
+HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+# Order of a cycle's responses before fusion: "readiness" (default: by
+# first request, oldest first) or "arrival" (completion order).  The mask
+# fast path keeps its ascending-bit order either way.
+HOROVOD_FUSION_ORDER = "HOROVOD_FUSION_ORDER"
+# Straggler detector (coordinator): a rank whose readiness-lag EWMA (how
+# long it keeps tensors waiting after the median announcer) exceeds this
+# many seconds is flagged; 0 turns flagging off, the EWMAs still update.
+HOROVOD_STRAGGLER_THRESHOLD_SECS = "HOROVOD_STRAGGLER_THRESHOLD_SECS"
+# The EWMA's smoothing factor, in (0, 1].
+HOROVOD_STRAGGLER_EWMA_ALPHA = "HOROVOD_STRAGGLER_EWMA_ALPHA"
+# A rank whose EWMA stays above this many seconds for
+# HOROVOD_STRAGGLER_DEMOTE_CYCLES consecutive busy cycles gets a demotion
+# verdict (a log line and a flight-recorder event: there is no elastic
+# driver to act on it).  0, the default, turns demotion off.
+HOROVOD_STRAGGLER_DEMOTE_SECS = "HOROVOD_STRAGGLER_DEMOTE_SECS"
+HOROVOD_STRAGGLER_DEMOTE_CYCLES = "HOROVOD_STRAGGLER_DEMOTE_CYCLES"
 # Where the cross-rank allreduce runs at size > 1: "cpu" (or "tcp", the JAX
 # package's name for it), the default, sums on the host over the gloo
 # control group; "nccl", the counterpart of the JAX package's "xla", sums
 # on the card over an NCCL group.
 HOROVOD_DATA_PLANE = "HOROVOD_DATA_PLANE"
+
+# -- flight recorder: a ring of recent events, dumped to
+# <dir>/hvd_flight_recorder/hvd_flight_recorder.rank<N>.json when the
+# background loop dies ("1"/"0", default on; dir default the cwd) --
+HOROVOD_FLIGHT_RECORDER = "HOROVOD_FLIGHT_RECORDER"
+HOROVOD_FLIGHT_RECORDER_DIR = "HOROVOD_FLIGHT_RECORDER_DIR"
+HOROVOD_FLIGHT_RECORDER_EVENTS = "HOROVOD_FLIGHT_RECORDER_EVENTS"
 
 # -- logging --
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
@@ -45,6 +71,12 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_STALL_CHECK_TIME_SECONDS = 60
 DEFAULT_STALL_SHUTDOWN_TIME_SECONDS = 0  # disabled
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_STRAGGLER_THRESHOLD_SECS = 5.0
+DEFAULT_STRAGGLER_EWMA_ALPHA = 0.25
+DEFAULT_STRAGGLER_DEMOTE_SECS = 0.0
+DEFAULT_STRAGGLER_DEMOTE_CYCLES = 10
+DEFAULT_FLIGHT_RECORDER_EVENTS = 512
 DEFAULT_MESH_STARTUP_TIMEOUT = 60.0
 
 PLANE_HOST = "cpu"

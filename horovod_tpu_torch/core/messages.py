@@ -1,17 +1,21 @@
-"""Control-plane messages: Request / Response and the cycle's ResponseList.
+"""Control-plane messages: Request / Response, the cycle's lists, and the
+steady-state and abort frames.
 
 Counterpart of ``horovod_tpu/core/messages.py`` (the reference's
 ``horovod/common/message.h:48-217``).  Every rank describes each tensor it
 wants reduced with a ``Request``; the coordinator answers with fused
 ``Response``s naming the tensors that are ready.
 
-The wire encoding (:class:`Writer`, :class:`Reader`,
-``RequestList.to_bytes`` / ``ResponseList.to_bytes``) is the JAX package's,
-byte for byte: little-endian fixed-width fields, length-prefixed strings and
-lists.  The JAX lists also carry the response cache's fields (cache hits,
-masks, assignments, evictions) and autotuned parameters; the port has no
-response cache yet, so it writes them empty and refuses a frame that fills
-them.  The mask frames are not ported.
+The wire encoding (:class:`Writer`, :class:`Reader`, the lists' and
+frames' ``to_bytes``) is the JAX package's, byte for byte: little-endian
+fixed-width fields, length-prefixed strings and lists.  The lists carry
+the response cache's fields (``core/response_cache.py``): a worker's cache
+hits as a bitmask, the coordinator's bit assignments and evictions.  A
+:class:`MaskFrame` is a whole cycle's contribution or verdict when every
+tensor of it is cached; an :class:`AbortFrame` is the verdict of a cycle
+in which the coordinator failed.  The JAX lists also carry autotuned
+parameters; the port has no autotuning, so it writes that field empty
+and refuses a frame that fills it.
 
 ``DataType`` maps to and from torch dtypes; bf16 is ``torch.bfloat16``.
 """
@@ -21,13 +25,18 @@ from __future__ import annotations
 import enum
 import struct
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from ..common.exceptions import TruncatedFrameError
 
 WIRE_MAGIC = 0x48564454  # "HVDT"
+MASK_MAGIC = 0x4B53414D  # "MASK": the steady-state frame
+ABORT_MAGIC = 0x54524241  # "ABRT": the coordinated-abort frame
+#: An abort reason's cap in UTF-8 bytes, the truncation mark included.
+MAX_ABORT_REASON_BYTES = 512
+_TRUNCATION_MARK = "…[truncated]"
 
 
 class DataType(enum.IntEnum):
@@ -182,20 +191,13 @@ class Reader:
     def str_list(self) -> List[str]:
         return [self.string() for _ in range(self.u32())]
 
-    def expect_magic(self, what: str) -> None:
+    def expect_magic(self, what: str, magic: int = WIRE_MAGIC) -> None:
         got = self.u32()
-        if got != WIRE_MAGIC:
+        if got != magic:
             raise ValueError(
                 f"bad {what} magic: got 0x{got:08X}, expected "
-                f"0x{WIRE_MAGIC:08X}; first {min(16, len(self.buf))} bytes: "
+                f"0x{magic:08X}; first {min(16, len(self.buf))} bytes: "
                 f"{bytes(self.buf[:16]).hex(' ')}")
-
-    def expect_empty(self, n: int, what: str) -> None:
-        """A field the port has no use for yet (the response cache's,
-        autotuning's) must arrive empty."""
-        if n:
-            raise ValueError(f"{what} in a frame: this runtime has no "
-                             "response cache or autotuning yet")
 
 
 @dataclass
@@ -295,17 +297,23 @@ class Response:
 
 @dataclass
 class RequestList:
-    """One rank's requests of a cycle, and whether it asks to shut down."""
+    """One rank's requests of a cycle, and whether it asks to shut down.
+    A cached tensor travels as its bit: ``cache_mask`` is the little-endian
+    bytes of the bitmask of this rank's hits (``cache_hits``, a list of bit
+    positions, is the JAX package's older flavor of the same, still read)."""
 
     requests: List[Request] = field(default_factory=list)
     shutdown: bool = False
+    cache_hits: List[int] = field(default_factory=list)
+    cache_mask: bytes = b""
 
     def to_bytes(self) -> bytes:
         w = Writer()
         w.u32(WIRE_MAGIC)
         w.u8(1 if self.shutdown else 0)
-        w.i32_list([])      # cache hits
-        w.u32(0)            # cache mask bytes
+        w.i32_list(self.cache_hits)
+        w.u32(len(self.cache_mask))
+        w.buf += self.cache_mask
         w.u32(len(self.requests))
         for req in self.requests:
             req.serialize(w)
@@ -316,26 +324,112 @@ class RequestList:
         r = Reader(data)
         r.expect_magic("request-list")
         shutdown = bool(r.u8())
-        r.expect_empty(len(r.i32_list()), "cache hits")
-        r.expect_empty(r.u32(), "a cache mask")
+        cache_hits = r.i32_list()
+        mask = r.bytes_(r.u32())
         reqs = [Request.deserialize(r) for _ in range(r.u32())]
-        return RequestList(requests=reqs, shutdown=shutdown)
+        return RequestList(requests=reqs, shutdown=shutdown,
+                           cache_hits=cache_hits, cache_mask=mask)
+
+
+def _has_magic(data: bytes, magic: int) -> bool:
+    return len(data) >= 4 and struct.unpack_from("<I", data)[0] == magic
+
+
+@dataclass
+class MaskFrame:
+    """A cycle as a bitmask alone, in both directions: a worker whose every
+    pending tensor hit its cache mirror sends its hits (an idle worker an
+    empty mask); a coordinator whose cycle was all cache bits on every rank
+    answers with the agreed bits, from which each rank rebuilds the
+    responses out of its cached templates."""
+
+    mask: bytes = b""        # little-endian bitmask
+    shutdown: bool = False
+
+    def to_bytes(self) -> bytes:
+        w = Writer()
+        w.u32(MASK_MAGIC)
+        w.u8(1 if self.shutdown else 0)
+        w.u32(len(self.mask))
+        w.buf += self.mask
+        return w.getvalue()
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "MaskFrame":
+        r = Reader(data)
+        r.expect_magic("mask-frame", MASK_MAGIC)
+        shutdown = bool(r.u8())
+        return MaskFrame(mask=r.bytes_(r.u32()), shutdown=shutdown)
+
+    @property
+    def mask_int(self) -> int:
+        return int.from_bytes(self.mask, "little")
+
+
+def is_mask_frame(data: bytes) -> bool:
+    return _has_magic(data, MASK_MAGIC)
+
+
+@dataclass
+class AbortFrame:
+    """The verdict of a cycle in which the coordinator failed: every rank
+    raises ``reason``.  ``epoch`` is the membership epoch (0 until elastic
+    re-init exists); the reason is capped at :data:`MAX_ABORT_REASON_BYTES`
+    when the frame is built."""
+
+    epoch: int = 0
+    origin_rank: int = 0
+    reason: str = ""
+
+    def __post_init__(self):
+        raw = self.reason.encode("utf-8")
+        if len(raw) > MAX_ABORT_REASON_BYTES:
+            mark = _TRUNCATION_MARK.encode("utf-8")
+            keep = raw[:MAX_ABORT_REASON_BYTES - len(mark)]
+            # A multi-byte character cut in two is dropped whole.
+            self.reason = keep.decode("utf-8", "ignore") + _TRUNCATION_MARK
+
+    def to_bytes(self) -> bytes:
+        w = Writer()
+        w.u32(ABORT_MAGIC)
+        w.i64(self.epoch)
+        w.i32(self.origin_rank)
+        w.string(self.reason)
+        return w.getvalue()
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "AbortFrame":
+        r = Reader(data)
+        r.expect_magic("abort-frame", ABORT_MAGIC)
+        return AbortFrame(epoch=r.i64(), origin_rank=r.i32(),
+                          reason=r.string())
+
+
+def is_abort_frame(data: bytes) -> bool:
+    return _has_magic(data, ABORT_MAGIC)
 
 
 @dataclass
 class ResponseList:
     """The coordinator's verdict of a cycle, which every rank executes in
-    order, and whether the job shuts down."""
+    order, and whether the job shuts down; with the cache's maintenance,
+    which the workers mirror: (bit, request template) assignments, then
+    evicted bits."""
 
     responses: List[Response] = field(default_factory=list)
     shutdown: bool = False
+    cache_assignments: List[Tuple[int, Request]] = field(default_factory=list)
+    evicted_bits: List[int] = field(default_factory=list)
 
     def to_bytes(self) -> bytes:
         w = Writer()
         w.u32(WIRE_MAGIC)
         w.u8(1 if self.shutdown else 0)
-        w.i32_list([])      # evicted cache bits
-        w.u32(0)            # cache assignments
+        w.i32_list(self.evicted_bits)
+        w.u32(len(self.cache_assignments))
+        for bit, template in self.cache_assignments:
+            w.i32(bit)
+            template.serialize(w)
         w.u8(0)             # no autotuned parameters
         w.u32(len(self.responses))
         for resp in self.responses:
@@ -347,8 +441,13 @@ class ResponseList:
         r = Reader(data)
         r.expect_magic("response-list")
         shutdown = bool(r.u8())
-        r.expect_empty(len(r.i32_list()), "evicted cache bits")
-        r.expect_empty(r.u32(), "cache assignments")
-        r.expect_empty(r.u8(), "autotuned parameters")
+        evicted = r.i32_list()
+        assignments = [(r.i32(), Request.deserialize(r))
+                       for _ in range(r.u32())]
+        if r.u8():
+            raise ValueError("autotuned parameters in a frame: this runtime "
+                             "has no autotuning")
         resps = [Response.deserialize(r) for _ in range(r.u32())]
-        return ResponseList(responses=resps, shutdown=shutdown)
+        return ResponseList(responses=resps, shutdown=shutdown,
+                            cache_assignments=assignments,
+                            evicted_bits=evicted)

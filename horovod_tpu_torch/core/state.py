@@ -14,6 +14,13 @@ response's dtype and size, on the card when its peers' tensors are there,
 so that it takes the same plane as they do; ``enqueue_join`` returns an
 event set when every rank has joined.
 
+A loop that dies leaves its error sticky (``async_error``): the pending
+handles fail with its text and so does every later enqueue.  At size > 1
+the coordinator's failure reaches every rank as the cycle's verdict (an
+``AbortFrame``, ``core/controller.py``), so all ranks stop with the same
+text; the flight recorder (``core/flight_recorder.py``) is dumped after
+the abort has gone out.
+
 Device work completes on a finalizer thread: an op that queued CUDA work
 returns ``Status.in_progress()`` and the finalizer waits on the op's CUDA
 event before firing the entries' callbacks (reference
@@ -53,6 +60,7 @@ from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology, from_env
 from ..transport.control import ControlPlane, gloo_group
 from ..transport.store import Store
+from . import flight_recorder
 from .controller import BARRIER_TENSOR_NAME, JOIN_TENSOR_NAME, Controller
 from .messages import DataType, Request, RequestType, Response, ResponseType
 from .operation_manager import OperationManager
@@ -101,6 +109,10 @@ class HorovodGlobalState:
         self.cycle_time_ms = env_mod.DEFAULT_CYCLE_TIME_MS
         self.background: Optional[threading.Thread] = None
         self.init_error: Optional[BaseException] = None
+        # The error the background loop died of: every later enqueue
+        # raises it.
+        self.async_error: Optional[str] = None
+        self.cycle_count = 0
         # Enqueues set this event so an idle loop wakes at once instead of
         # sleeping out the cycle; busy cycles skip the sleep entirely.
         self._wake = threading.Event()
@@ -235,7 +247,9 @@ class HorovodGlobalState:
             stall_warning_secs=stall_secs,
             stall_shutdown_secs=env_mod.get_float(
                 env_mod.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS,
-                env_mod.DEFAULT_STALL_SHUTDOWN_TIME_SECONDS))
+                env_mod.DEFAULT_STALL_SHUTDOWN_TIME_SECONDS),
+            cache_capacity=env_mod.get_int(env_mod.HOROVOD_CACHE_CAPACITY,
+                                           env_mod.DEFAULT_CACHE_CAPACITY))
         register_ops(self.op_manager, topo, self.device, self.plane,
                      self.control_group, self.nccl_group)
         self._finalizer = threading.Thread(
@@ -271,7 +285,11 @@ class HorovodGlobalState:
                     self._wake.wait(cycle - elapsed)
         except BaseException as e:  # noqa: BLE001 — fail every waiter
             log.error("background loop died: %s", e, exc_info=True)
-            self._fail_all_pending(f"Horovod background loop died: {e}")
+            self.async_error = str(e)
+            # Rank 0's abort, if it was rank 0's failure, has gone out with
+            # the cycle's verdict by now.
+            self._dump_flight_recorder(e)
+            self._fail_all_pending(self.async_error)
         else:
             self._fail_all_pending("Horovod has been shut down")
         finally:
@@ -284,14 +302,26 @@ class HorovodGlobalState:
             finally:
                 self.shutdown_complete.set()
 
+    @staticmethod
+    def _dump_flight_recorder(error: BaseException) -> None:
+        path = flight_recorder.recorder.dump(
+            f"background loop death: {type(error).__name__}: {error}")
+        if path:
+            log.error("flight-recorder post-mortem written to %s", path)
+
     def _run_loop_once(self) -> bool:
         """One cycle (``RunLoopOnce``, ``operations.cc:595-689``): negotiate,
         then execute every agreed response.  Returns False to stop."""
         requests = self.tensor_queue.pop_messages()
         response_list = self.controller.compute_response_list(
             requests, self.shutdown_requested.is_set())
+        self.cycle_count += 1
         self._last_cycle_had_work = bool(requests) \
             or bool(response_list.responses)
+        if self._last_cycle_had_work:
+            flight_recorder.record("cycle", n=self.cycle_count,
+                                   requests=len(requests),
+                                   responses=len(response_list.responses))
         for response in response_list.responses:
             self._perform_operation(response)
         return not response_list.shutdown
@@ -411,6 +441,8 @@ class HorovodGlobalState:
             raise HorovodInternalError(
                 "horovod_tpu_torch has not been initialized; call hvd.init() "
                 "first.")
+        if self.async_error is not None:
+            raise HorovodInternalError(self.async_error)
         if self.shutdown_complete.is_set() or \
                 (self.background is not None and not self.background.is_alive()):
             raise HorovodInternalError(

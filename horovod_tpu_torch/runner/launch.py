@@ -47,9 +47,42 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[env_mod.PLANE_HOST, "tcp", env_mod.PLANE_NCCL],
                    help="where the cross-rank allreduce runs: the host "
                         "(cpu, the default) or the card (nccl)")
+    # Runtime knobs, which become every rank's HOROVOD_* environment
+    # (horovod_tpu/runner/launch.py:58-63).
+    p.add_argument("--cache-capacity", type=int, default=None,
+                   help="response cache entries (default 1024; 0 turns "
+                        "the cache off)")
+    p.add_argument("--no-stall-check", action="store_true", default=False,
+                   help="turn the stall warnings off")
+    p.add_argument("--stall-check-warning-time-seconds", type=int,
+                   default=None,
+                   help="warn about a tensor some ranks have waited on "
+                        "this long (default 60)")
+    p.add_argument("--stall-check-shutdown-time-seconds", type=int,
+                   default=None,
+                   help="end the job, on every rank, when a tensor has "
+                        "waited this long (default 0: never)")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="the command to run on every slot")
     return p
+
+
+def runtime_env(args) -> Dict[str, str]:
+    """The ``HOROVOD_*`` variables the command line sets on every rank."""
+    env: Dict[str, str] = {}
+    if args.data_plane is not None:
+        env[env_mod.HOROVOD_DATA_PLANE] = args.data_plane
+    if args.cache_capacity is not None:
+        env[env_mod.HOROVOD_CACHE_CAPACITY] = str(args.cache_capacity)
+    if args.no_stall_check:
+        env[env_mod.HOROVOD_STALL_CHECK_DISABLE] = "1"
+    if args.stall_check_warning_time_seconds is not None:
+        env[env_mod.HOROVOD_STALL_CHECK_TIME_SECONDS] = str(
+            args.stall_check_warning_time_seconds)
+    if args.stall_check_shutdown_time_seconds is not None:
+        env[env_mod.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS] = str(
+            args.stall_check_shutdown_time_seconds)
+    return env
 
 
 def _slot_env(slot: SlotInfo, rdv_addr: str, rdv_port: int,
@@ -130,8 +163,7 @@ def launch_job(args, command: List[str]) -> int:
     server = StoreServer(local_only)
     rdv_addr = "127.0.0.1" if local_only else \
         socket.gethostbyname(socket.gethostname())
-    extra = {} if args.data_plane is None else \
-        {env_mod.HOROVOD_DATA_PLANE: args.data_plane}
+    extra = runtime_env(args)
     procs: List[subprocess.Popen] = []
     pumps: List[_OutputPump] = []
     try:

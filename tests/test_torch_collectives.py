@@ -5,9 +5,9 @@ In one process: seeded request sets of every new type, with a root-rank
 mismatch, an allgather trailing-dimension mismatch, alltoall splits of the
 wrong length and of the wrong sum, and ranks that have joined, go through
 both controllers' ``_increment`` → ``_construct_response`` →
-``_fuse_responses`` and through whole coordinator rounds over fake
-transports in which a JOIN lands after a tensor's last request (the JAX
-controller with ``HOROVOD_CACHE_CAPACITY=0``): the responses must be equal
+``_fuse_responses`` (both caches off) and through whole coordinator rounds
+over fake transports in which a JOIN lands after a tensor's last request
+(both with the response cache off and on): the responses must be equal
 field by field, and the request and response frames byte for byte.  The
 np=1 API runs beside the JAX bridge (``horovod_tpu.torch``) on the same
 inputs.  The size > 1 op chain, built with fake groups, runs each
@@ -196,7 +196,8 @@ def test_responses_match_jax_controller(seed, size, joined):
     ours_topo, jax_topo = _topologies(size)
     per_rank = _request_sets(seed, size, joined)
     ours = _drive(controller.Controller(ours_topo, _Unused(),
-                                        fusion_threshold_bytes=FUSION_BYTES),
+                                        fusion_threshold_bytes=FUSION_BYTES,
+                                        cache_capacity=0),
                   messages, per_rank)
     theirs = _drive(jax_controller.Controller(
         jax_topo, None, fusion_threshold_bytes=FUSION_BYTES, cache_capacity=0),
@@ -275,9 +276,10 @@ class _Replay:
         return self.verdict
 
 
+@pytest.mark.parametrize("cache", [0, 1024], ids=["cache0", "cache1024"])
 @pytest.mark.parametrize("size", [2, 3, 4])
 @pytest.mark.parametrize("seed", range(2))
-def test_rounds_with_a_late_join_broadcast_the_jax_frames(seed, size):
+def test_rounds_with_a_late_join_broadcast_the_jax_frames(seed, size, cache):
     """Cycle 0: every rank but the last requests the tensors; cycle 1: the
     last rank's JOIN lands after their last requests and completes them
     (the collectives that move bits as ERRORs); cycle 2: the others request
@@ -308,11 +310,12 @@ def test_rounds_with_a_late_join_broadcast_the_jax_frames(seed, size):
     ours_topo, jax_topo = _topologies(size)
     control = _FakeControl(frames)
     ours = controller.Controller(ours_topo, control,
-                                 fusion_threshold_bytes=FUSION_BYTES)
+                                 fusion_threshold_bytes=FUSION_BYTES,
+                                 cache_capacity=cache)
     mesh = _FakeMesh(frames)
     theirs = jax_controller.Controller(jax_topo, mesh,
                                        fusion_threshold_bytes=FUSION_BYTES,
-                                       cache_capacity=0)
+                                       cache_capacity=cache)
     lists = []
     for c in range(3):
         rl = ours.compute_response_list(
@@ -322,7 +325,7 @@ def test_rounds_with_a_late_join_broadcast_the_jax_frames(seed, size):
         assert control.sent[c] == mesh.sent[c], f"cycle {c}"
         worker = controller.Controller(
             ProcessTopology(rank=1, size=size, local_rank=1, local_size=size),
-            _Replay(control.sent[c]))
+            _Replay(control.sent[c]), cache_capacity=cache)
         assert worker.compute_response_list([]) == rl
         lists.append(rl)
     assert lists[0].responses == []

@@ -2,10 +2,10 @@
 
 In one process: seeded multi-rank request sets, with mismatched dtypes,
 operations, scale factors and shapes, go through both controllers'
-``_increment`` → ``_construct_response`` → ``_fuse_responses`` and through
-whole coordinator rounds over fake transports (the JAX controller with
-``HOROVOD_CACHE_CAPACITY=0``): the responses must be equal field by field
-and the broadcast frames byte for byte.
+``_increment`` → ``_construct_response`` → ``_fuse_responses`` (both
+controllers' caches off) and through whole coordinator rounds over fake
+transports (both with the response cache off and on): the responses must
+be equal field by field and the broadcast frames byte for byte.
 
 Across processes: three jobs, each run once per module and read by many
 tests.  Two go through the port's launcher on the CPU (gloo, the host
@@ -139,7 +139,8 @@ def test_responses_match_jax_controller(seed, size):
     ours_topo, jax_topo = _topologies(size)
     per_rank = _request_sets(seed, size)
     ours = _drive(controller.Controller(ours_topo, _Unused(),
-                                        fusion_threshold_bytes=FUSION_BYTES),
+                                        fusion_threshold_bytes=FUSION_BYTES,
+                                        cache_capacity=0),
                   messages, per_rank)
     theirs = _drive(jax_controller.Controller(
         jax_topo, None, fusion_threshold_bytes=FUSION_BYTES, cache_capacity=0),
@@ -190,13 +191,15 @@ class _FakeMesh:
             self.sent.append(payload)
 
 
+@pytest.mark.parametrize("cache", [0, 1024], ids=["cache0", "cache1024"])
 @pytest.mark.parametrize("size", [2, 3, 4])
 @pytest.mark.parametrize("seed", range(3))
-def test_coordinator_rounds_broadcast_the_jax_frames(seed, size):
+def test_coordinator_rounds_broadcast_the_jax_frames(seed, size, cache):
     """Three cycles in which the ranks' requests arrive at different times:
     the same verdict bytes every cycle (oldest tensors first, so the
-    readiness order is exercised), a worker's shutdown in the last cycle
-    reaches the verdict, and a worker decodes what rank 0 executes."""
+    readiness order is exercised; with the cache on, the bit assignments
+    too), a worker's shutdown in the last cycle reaches the verdict, and a
+    worker decodes what rank 0 executes."""
     per_rank = _request_sets(100 + seed, size)
     rng = np.random.RandomState(seed)
     cuts = [sorted(rng.randint(0, 17, 2)) for _ in range(size)]
@@ -209,11 +212,12 @@ def test_coordinator_rounds_broadcast_the_jax_frames(seed, size):
     ours_topo, jax_topo = _topologies(size)
     control = _FakeControl(frames)
     ours = controller.Controller(ours_topo, control,
-                                 fusion_threshold_bytes=FUSION_BYTES)
+                                 fusion_threshold_bytes=FUSION_BYTES,
+                                 cache_capacity=cache)
     mesh = _FakeMesh(frames)
     theirs = jax_controller.Controller(jax_topo, mesh,
                                        fusion_threshold_bytes=FUSION_BYTES,
-                                       cache_capacity=0)
+                                       cache_capacity=cache)
     for c in range(3):
         rl = ours.compute_response_list(
             [_request(messages, f) for f in split[0][c]])
@@ -221,9 +225,12 @@ def test_coordinator_rounds_broadcast_the_jax_frames(seed, size):
             [_request(jax_messages, f) for f in split[0][c]])
         assert control.sent[c] == mesh.sent[c], f"cycle {c}"
         assert rl.shutdown == (c == 2)
+        assert bool(rl.cache_assignments) == (cache > 0 and any(
+            r.response_type != messages.ResponseType.ERROR
+            for r in rl.responses))
         worker = controller.Controller(
             ProcessTopology(rank=1, size=size, local_rank=1, local_size=size),
-            _Replay(control.sent[c]))
+            _Replay(control.sent[c]), cache_capacity=cache)
         assert worker.compute_response_list([]) == rl
     assert sum(len(r.responses) for r in map(
         messages.ResponseList.from_bytes, control.sent)) > 0
@@ -236,7 +243,12 @@ class _Replay:
         self.verdict = verdict
 
     def gather(self, payload):
-        assert messages.RequestList.from_bytes(payload).requests == []
+        # An idle worker's frame: an empty mask with the cache on, an empty
+        # list with it off.
+        if messages.is_mask_frame(payload):
+            assert messages.MaskFrame.from_bytes(payload).mask == b""
+        else:
+            assert messages.RequestList.from_bytes(payload).requests == []
         return None
 
     def broadcast(self, payload):

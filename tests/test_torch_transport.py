@@ -112,18 +112,32 @@ def test_response_list_bytes_match_jax(seed):
 
 
 @pytest.mark.parametrize("frame", [
-    jax_messages.RequestList(cache_hits=[3]),
-    jax_messages.RequestList(cache_mask=b"\x01"),
-    jax_messages.ResponseList(evicted_bits=[1]),
     jax_messages.ResponseList(tuned_params=(1 << 20, 2.0)),
 ])
 def test_frames_with_response_cache_fields_are_refused(frame):
-    """The port has no response cache: a frame that carries its fields is
+    """The port has no autotuning: a frame that carries tuned parameters is
     an error, not silently dropped state."""
-    cls = messages.RequestList if isinstance(
-        frame, jax_messages.RequestList) else messages.ResponseList
-    with pytest.raises(ValueError, match="response cache"):
-        cls.from_bytes(frame.to_bytes())
+    with pytest.raises(ValueError, match="autotun"):
+        messages.ResponseList.from_bytes(frame.to_bytes())
+
+
+@pytest.mark.parametrize("frame", [
+    jax_messages.RequestList(cache_hits=[3]),
+    jax_messages.RequestList(cache_mask=b"\x01"),
+    jax_messages.ResponseList(evicted_bits=[1]),
+])
+def test_frames_with_response_cache_fields_come_through(frame):
+    """The JAX frames that the port refused before it had a response cache
+    decode with their cache fields, and encode to the same bytes."""
+    data = frame.to_bytes()
+    if isinstance(frame, jax_messages.RequestList):
+        ours = messages.RequestList.from_bytes(data)
+        assert (ours.cache_hits, ours.cache_mask) == (frame.cache_hits,
+                                                      frame.cache_mask)
+    else:
+        ours = messages.ResponseList.from_bytes(data)
+        assert ours.evicted_bits == frame.evicted_bits
+    assert ours.to_bytes() == data
 
 
 def test_truncated_and_foreign_frames_raise():
