@@ -44,16 +44,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    (the tokens are the labels, as in ``benchmarks/bert_bench.py``).
    Asserts a finite loss, 24 launches of each flash kernel per step, and
    292 gradients reduced by the size-1 ``Allreduce`` each step.
-9. NCCL plane, one rank: a one-rank NCCL group in this process drives
-   ``Allreduce.execute`` built for the device plane (the op the size > 1
-   chain registers for ``HOROVOD_DATA_PLANE=nccl``) on fused bf16, fp16,
-   fp32 and int32 responses with prescale 0.5 and postscale 2.0, against
-   the plain arithmetic: the same bits; and ``Broadcast``, ``Allgather``
+9. Adasum kernels: ``triplets`` and ``combine`` (``csrc/adasum.cu``) on
+   BERT-large's 292-entry fp32 layout whole (334,090,240 elements) and on
+   the np=2 VHDD half-window of it (which cuts one entry), ResNet-50's
+   161-entry layout and ragged layouts (1-element entries, a zero entry,
+   a == b, an odd total), against their plain versions on the same
+   inputs: triplets within ``ADASUM_TRIPLET_REL``, the combine within
+   ``ADASUM_COMBINE_REL_RMS`` per entry, the same bits on a second launch;
+   the whole BERT layout, as one call (a shape the main path does not
+   run: it reduces ~20 fused responses a step), times the kernels and the
+   plain version and computes the bound (20 bytes per element).
+10. NCCL plane, one rank: a one-rank NCCL group in this process drives
+   ``Allreduce.execute`` and ``Adasum.execute`` built for the device plane
+   (the ops the size > 1 chain registers for ``HOROVOD_DATA_PLANE=nccl``)
+   on fused bf16, fp16, fp32 and (allreduce only) int32 responses with
+   prescale 0.5 and postscale 2.0, against the plain arithmetic: the same
+   bits (Adasum has no round at one rank); and ``Broadcast``, ``Allgather``
    (two tensors in one fused response) and ``Alltoall`` on the same plane
    and dtypes,
    each output the bits of its input.  Then ``HOROVOD_DATA_PLANE=nccl`` at
    np=2 on this one card must fail with the runtime's own message.
-10. ResNet-50 at np=2: ``python -m horovod_tpu_torch.runner.launch -np 2``
+11. ResNet-50 at np=2: ``python -m horovod_tpu_torch.runner.launch -np 2``
     on this one card (both ranks ``device="cuda:0"``, the host plane),
     ResNet-50 (bf16, ``fuse_conv1x1_bn=True``, 224x224) at 64 images per
     rank (the np=1 path's global 128), 3 steps through
@@ -74,7 +85,7 @@ Phases, in order; any failure raises and the exit code is not 0:
     with ``--cache-capacity 0`` and must end with the same parameter hash,
     bit for bit, after every step (at two ranks the sum ``a + b`` does not
     depend on how the responses are bucketed).
-11. BERT-large at np=2 (``--worker np2-bert``), the repo's example script's
+12. BERT-large at np=2 (``--worker np2-bert``), the repo's example script's
     start-up: full BERT-large on each rank from its own seed
     (``1234 + rank``), local AdamW steps on its own batch (one on rank 0,
     two on rank 1, so that every state tensor differs, ``step`` included;
@@ -98,7 +109,26 @@ Phases, in order; any failure raises and the exit code is not 0:
     The response cache is on: the start-up broadcasts fill it past its
     1024 entries, so the gradients' first step evicts (their count is
     printed), and rank 1's second step must send no serialized request.
-12. Stall at np=2 (``--worker np2-stall``), both ranks on the card, with
+13. BERT-large at np=2 with Adasum (``--worker np2-bert-adasum``,
+    BASELINE config 4): per-rank seeds, ``hvd.broadcast_parameters`` and
+    ``hvd.broadcast_optimizer_state``, then
+    ``hvd.DistributedOptimizer(AdamW, op=hvd.Adasum)`` for 2 steps of 4 x
+    512 tokens per rank on the host plane.  Asserts on each rank and step:
+    24 launches of each flash kernel, 292 tensors through the Adasum op and
+    none through the allreduce, Adasum kernel launches, the weights written
+    as the old ones plus the reduced delta, a finite loss; the parameters'
+    hash equal across ranks; in step 1 the applied update of three
+    parameters within ``NP2_ADASUM_REL_RMS`` of the fp64 closed form of
+    the two ranks' local AdamW steps (taken on clones), which the plain
+    mean of the two (the control) must miss over the three together.
+    Prints ms per step and in
+    the Adasum op beside phase 12's Average numbers.  Each rank records the
+    window (entry sizes, lo, hi) of every kernel call: one window per
+    triplets and per combine launch.  Then, in this process, the kernels
+    are held against their plain versions on every window so recorded, as
+    in phase 9, and timed there: per step and rank, the sum over its
+    windows.
+14. Stall at np=2 (``--worker np2-stall``), both ranks on the card, with
     ``--stall-check-warning-time-seconds 1`` and
     ``--stall-check-shutdown-time-seconds 3``: five steps of two named
     allreduces on the card warm the cache, then rank 0 submits ``stuck``,
@@ -107,12 +137,15 @@ Phases, in order; any failure raises and the exit code is not 0:
     within ``STALL_ABORT_S``, rank 1's next enqueue the same text, both
     flight-recorder dumps must name it, and the job must end.
 
-The last two lines are the kernels' JSON summary and
+The last two lines are the kernels' JSON summary (B8, the three flash
+kernels and the Adasum kernels, whose launches are phase 13's and whose
+times are the sums over phase 13's windows per step and rank, averaged
+over its ranks and steps) and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
-``--worker np2-stall DIR`` and ``--worker nccl-np2`` are the launched
-workers of phases 10, 11, 12 and 9.
+``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR`` and ``--worker
+nccl-np2`` are the launched workers of phases 11, 12, 13, 14 and 10.
 """
 
 from __future__ import annotations
@@ -135,6 +168,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.backend import adasum as adasum_backend
 from horovod_tpu_torch.backend import cuda as cuda_backend
 from horovod_tpu_torch.common.env import PLANE_HOST, PLANE_NCCL
 from horovod_tpu_torch.common.exceptions import HorovodInternalError
@@ -143,6 +177,7 @@ from horovod_tpu_torch.core import controller as controller_mod
 from horovod_tpu_torch.core.messages import DataType, Response, ResponseType
 from horovod_tpu_torch.core.state import global_state
 from horovod_tpu_torch.core.tensor_queue import TensorTableEntry
+from horovod_tpu_torch.kernels import adasum as adasum_kernels
 from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
 from horovod_tpu_torch.models import resnet, transformer
@@ -273,6 +308,30 @@ NP2_BERT_WATCHED = ("layer_0.attn.qkv.kernel", "layer_23.ffn_out.kernel",
                     "ln_f.scale")
 # Rows each rank sends to rank 0 and rank 1 in the closing alltoall.
 NP2_BERT_SPLITS = ([1, 2], [3, 1])
+# The Adasum kernels against their plain versions (same fp32 inputs): the
+# fp64 triplets within ADASUM_TRIPLET_REL of each value, the dot product's
+# taken relative to sqrt(|a|^2 |b|^2) (its Cauchy-Schwarz bound: a dot of
+# nearly orthogonal entries cancels); the combine within
+# ADASUM_COMBINE_REL_RMS per entry (both round the same fp32 products, but
+# a coefficient may round the other way when the triplets differ in their
+# last bits); the same bits on a second launch.
+ADASUM_TRIPLET_REL = 1e-12
+ADASUM_COMBINE_REL_RMS = 1e-6
+# Least bytes per fp32 element: a and b read by the triplets pass (8), a
+# and b read and the output written by the combine (12).
+ADASUM_BYTES_PER_ELEMENT = 20
+PEAK_FP64_FLOPS = 34e12    # H100 SXM fp64 outside the tensor cores
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+# Ragged layout: 1-element entries, a 1000-element entry that is zero in a
+# (adasum(0, b) == b), one zero in both, an odd total of 66,557.
+ADASUM_RAGGED = [1, 1, 7, 1000, 3, 1, 65537, 2, 5]
+# BERT-large at np=2 with Adasum (BASELINE config 4): the applied update of
+# the watched tensors in step 1 against the fp64 closed form of the two
+# ranks' local AdamW steps, relative RMS.  The port's fp64 triplets and
+# fp32 combine put it at ~1e-7; the plain mean of the two steps (the
+# control) must miss the three tensors' closed forms together by more.
+NP2_ADASUM_STEPS = 2
+NP2_ADASUM_REL_RMS = 1e-5
 # The stall phase: shutdown time, and the limit on the abort's arrival.
 STALL_SHUTDOWN_S = 3
 STALL_ABORT_S = 15
@@ -483,6 +542,7 @@ def phase_main_path() -> dict:
     return {"losses": losses, "steps": steps,
             "images_per_s": TIMED_STEPS * BATCH / seconds,
             "step_ms": 1e3 * seconds / TIMED_STEPS, "n_params": len(params),
+            "sizes": [p.numel() for _, p in params],
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
@@ -693,8 +753,134 @@ def phase_bert_main_path() -> dict:
     return {"losses": losses, "steps": WARMUP_STEPS + TIMED_STEPS,
             "tokens_per_s": TIMED_STEPS * BERT_BATCH * BERT_SEQ / seconds,
             "step_ms": 1e3 * seconds / TIMED_STEPS, "n_params": len(params),
+            "sizes": [p.numel() for _, p in params],
             "n_weights": sum(p.numel() for _, p in params),
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def adasum_bound(n: int, entries: int):
+    """Least time (ms) of the triplets and the combine over ``n`` fp32
+    elements and what bounds it: ``ADASUM_BYTES_PER_ELEMENT`` per element
+    and the triplets written and read (48 bytes per entry) over the HBM
+    rate, against 6 fp64 operations (three multiply-adds) and 3 fp32 ones
+    per element over their rates."""
+    bytes_s = (ADASUM_BYTES_PER_ELEMENT * n + 48 * entries) / PEAK_BYTES
+    ops_s = 6.0 * n / PEAK_FP64_FLOPS + 3.0 * n / PEAK_FP32_FLOPS
+    return 1e3 * max(ops_s, bytes_s), \
+        "operations" if ops_s > bytes_s else "bytes"
+
+
+def adasum_layouts(bert_sizes: list, resnet_sizes: list) -> list:
+    """(name, entry sizes, window lo, window hi, a == b, timed): BERT-large's
+    292 entries whole (timed as one call) and the np=2 VHDD half-window of
+    them (the lower half, had the whole layout been one response),
+    ResNet-50's 161 entries, and ragged ones (``ADASUM_RAGGED``; the
+    second window cuts entries and has a == b)."""
+    total = sum(bert_sizes)
+    return [
+        ("bert_large", bert_sizes, 0, total, False, True),
+        ("bert_large_np2_half", bert_sizes, 0, total // 2, False, False),
+        ("resnet50", resnet_sizes, 0, sum(resnet_sizes), False, False),
+        ("ragged", ADASUM_RAGGED, 0, sum(ADASUM_RAGGED), False, False),
+        ("ragged_identical", ADASUM_RAGGED, 3, sum(ADASUM_RAGGED) - 2, True,
+         False),
+    ]
+
+
+def check_adasum_layout(name: str, sizes: list, lo: int, hi: int,
+                        identical: bool, timed: bool,
+                        gen: torch.Generator) -> dict:
+    dev = torch.device("cuda", 0)
+    n, entries = hi - lo, len(sizes)
+    segs = adasum_backend._segment_bounds(sizes, lo, hi)
+    a = torch.randn(n, device=dev, generator=gen)
+    b = a.clone() if identical else \
+        torch.randn(n, device=dev, generator=gen) + 0.5 * a
+    if name == "ragged":
+        for idx, s_lo, s_hi in segs:
+            if idx in (3, 5):
+                a[s_lo:s_hi] = 0
+            if idx == 5:
+                b[s_lo:s_hi] = 0
+    trip = adasum_kernels.triplets(a, b, segs, entries)
+    out = adasum_kernels.combine(a, b, segs, trip)
+    # No atomics: a second launch on the same inputs gives the same bits.
+    trip2 = adasum_kernels.triplets(a, b, segs, entries)
+    out2 = adasum_kernels.combine(a, b, segs, trip2)
+    torch.cuda.synchronize()
+    repeatable = torch.equal(trip, trip2) and torch.equal(out, out2)
+    del trip2, out2
+    trip_ref = adasum_kernels.triplets_reference(a, b, segs, entries)
+    out_ref = adasum_kernels.combine_reference(a, b, segs, trip_ref)
+    scale = trip_ref.abs()
+    scale[:, 0] = torch.maximum(scale[:, 0],
+                                (trip_ref[:, 1] * trip_ref[:, 2]).sqrt())
+    diff = (trip - trip_ref).abs()
+    if bool((diff[scale == 0] != 0).any()):
+        raise AssertionError(f"adasum {name}: a zero triplet is not zero")
+    trip_rel = (diff / scale.clamp_min(1e-300)).max().item()
+    worst, cut = 0.0, 0
+    for idx, s_lo, s_hi in segs:
+        cut += s_hi - s_lo < sizes[idx]
+        ref = out_ref[s_lo:s_hi]
+        if ref.norm() == 0:
+            if bool(out[s_lo:s_hi].any()):
+                raise AssertionError(f"adasum {name}: entry {idx} is not 0")
+            continue
+        worst = max(worst, rel_rms(out[s_lo:s_hi], ref))
+    row = {"layout": name, "entries": entries, "segments": len(segs),
+           "cut_entries": cut, "elements": n,
+           "max_abs_err": (out - out_ref).abs().max().item(),
+           "triplet_rel_err": trip_rel, "combine_rel_rms": worst,
+           "bitwise_repeatable": repeatable}
+    if not (repeatable and trip_rel <= ADASUM_TRIPLET_REL
+            and worst <= ADASUM_COMBINE_REL_RMS):
+        raise AssertionError(f"adasum kernels disagree with their plain "
+                             f"versions on {name}: {row}")
+    if name == "ragged":
+        zero_in_a = next(s for s in segs if s[0] == 3)
+        assert torch.equal(out[zero_in_a[1]:zero_in_a[2]],
+                           b[zero_in_a[1]:zero_in_a[2]]), "adasum(0, b) != b"
+    del out_ref, trip_ref, diff, scale
+    if timed:
+        buf = torch.empty_like(a)
+        row["triplets_ms"] = cuda_ms(
+            lambda: adasum_kernels.triplets(a, b, segs, entries), 10)
+        row["combine_ms"] = cuda_ms(
+            lambda: adasum_kernels.combine(a, b, segs, trip, out=buf), 10)
+        row["ms"] = row["triplets_ms"] + row["combine_ms"]
+        row["plain_ms"] = cuda_ms(
+            lambda: adasum_kernels.combine_reference(
+                a, b, segs,
+                adasum_kernels.triplets_reference(a, b, segs, entries)), 3,
+            warmup=1)
+        row["bound_ms"], row["bound_by"] = adasum_bound(n, entries)
+        # No one PyTorch call computes a per-entry Adasum.
+        row["library_ms"] = None
+    return row
+
+
+def phase_adasum_kernels(bert_sizes: list, resnet_sizes: list) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for layout in adasum_layouts(bert_sizes, resnet_sizes):
+        row = check_adasum_layout(*layout, gen=gen)
+        rows.append(row)
+        print("adasum kernel", json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    half = next(r for r in rows if r["layout"] == "bert_large_np2_half")
+    assert half["cut_entries"] == 1, half
+    return rows
+
+
+def adasum64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The closed form of one entry's Adasum, in fp64."""
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    dot, aa, bb = a @ b, a @ a, b @ b
+    eps = adasum_kernels.NORMSQ_EPS
+    ca = 1.0 - dot / (2.0 * aa) if aa >= eps else 1.0
+    cb = 1.0 - dot / (2.0 * bb) if bb >= eps else 1.0
+    return ca * a + cb * b
 
 
 def _ready_entry(name: str, tensor: torch.Tensor, stream,
@@ -706,9 +892,10 @@ def _ready_entry(name: str, tensor: torch.Tensor, stream,
 
 
 def phase_nccl_one_rank() -> dict:
-    """The device plane's ops on a one-rank NCCL group: ``Allreduce``
-    (the fused buffer, the widening, the scales and the unfuse on the card)
-    against the plain arithmetic, and ``Broadcast``, ``Allgather`` (two
+    """The device plane's ops on a one-rank NCCL group: ``Allreduce`` and
+    ``Adasum`` (the fused buffer, the widening, the scales and the unfuse
+    on the card; Adasum has no round at one rank) against the plain
+    arithmetic, and ``Broadcast``, ``Allgather`` (two
     tensors in one fused response) and ``Alltoall``, which move
     bits, against their inputs' bytes."""
     dev = torch.device("cuda", 0)
@@ -719,6 +906,7 @@ def phase_nccl_one_rank() -> dict:
         topo = ProcessTopology()
         nccl = PLANE_NCCL
         op = cuda_backend.Allreduce(topo, dev, nccl, group)
+        adasum = adasum_backend.Adasum(topo, dev, nccl, group)
         moves = {"broadcast": cuda_backend.Broadcast(topo, dev, nccl, group),
                  "allgather": cuda_backend.Allgather(topo, dev, nccl, group),
                  "alltoall": cuda_backend.Alltoall(topo, dev, nccl, group)}
@@ -755,6 +943,28 @@ def phase_nccl_one_rank() -> dict:
                         f"max |err| "
                         f"{(e.output.double() - plain.double()).abs().max()}")
             checked[str(dtype)] = {"allreduce": len(entries)}
+            if dtype != torch.int32:
+                # Adasum over one rank: no round, the scales only.
+                launches = sum(adasum_kernels.LAUNCHES.values())
+                entries = [_ready_entry(f"adasum.{dtype}.{i}", t, stream,
+                                        prescale_factor=0.5,
+                                        postscale_factor=2.0)
+                           for i, t in enumerate(tensors)]
+                status = adasum.execute(dataclasses.replace(
+                    response, response_type=ResponseType.ADASUM,
+                    tensor_names=[e.tensor_name for e in entries]), entries)
+                assert status.ok and status.pending, status
+                entries[0].done_event.synchronize()
+                for e in entries:
+                    plain = (cuda_backend.widened(e.tensor) * 0.5 * 2.0) \
+                        .to(dtype)
+                    if not torch.equal(e.output, plain):
+                        err = (e.output.double() - plain.double()).abs()
+                        raise AssertionError(
+                            f"nccl adasum {dtype} {tuple(e.tensor.shape)}: "
+                            f"max |err| {err.max()}")
+                assert sum(adasum_kernels.LAUNCHES.values()) == launches
+                checked[str(dtype)]["adasum"] = len(entries)
             kind = DataType.from_torch(dtype)
             cases = {
                 "broadcast": ([_ready_entry("b", tensors[2], stream,
@@ -1312,7 +1522,257 @@ def phase_np2_bert(card_line: str) -> dict:
               f"{rk['peak_mem_gb']:.1f} GB, worker {rk['seconds']:.1f}s "
               f"[{card_line}]", flush=True)
     return {"seconds": seconds, "worst_grad_rel_rms": worst,
-            "control_rel_rms": control, "evictions": evictions}
+            "control_rel_rms": control, "evictions": evictions,
+            "ms": [[s["ms"] for s in rk["steps"]] for rk in ranks],
+            "plane_ms": [[s["plane_ms"] for s in rk["steps"]]
+                         for rk in ranks]}
+
+
+def adasum_probe(record) -> tuple:
+    """Wraps the Adasum op in this worker: the wall seconds the background
+    thread spends in it, summed into the returned list's one item; the
+    output tensor of each entry named in ``record`` (the reduced delta the
+    optimizer adds to the old weights), into the returned dict; and the
+    window ``(entry sizes, lo, hi)`` the host plane's VHDD hands the
+    kernels in each round, into the returned list."""
+    op_seconds, outputs, windows = [0.0], {}, []
+    execute = adasum_backend.Adasum.execute
+    segment_bounds = adasum_backend._segment_bounds
+
+    def recorded(sizes, lo, hi):
+        windows.append((list(sizes), lo, hi))
+        return segment_bounds(sizes, lo, hi)
+
+    def timed(self, response, entries):
+        t = time.perf_counter()
+        try:
+            return execute(self, response, entries)
+        finally:
+            op_seconds[0] += time.perf_counter() - t
+            outputs.update((e.tensor_name, e.output) for e in entries
+                           if e.tensor_name in record)
+
+    adasum_backend.Adasum.execute = timed
+    adasum_backend._segment_bounds = recorded
+    return op_seconds, outputs, windows
+
+
+def local_adamw_steps(inner: torch.optim.Optimizer, watched: list,
+                      grads: list) -> list:
+    """What ``inner`` (AdamW) alone would add to each of ``watched`` given
+    ``grads``: the same step on clones with the same hyperparameters and
+    a copy of the state, as fp32 CPU tensors."""
+    clones = []
+    for p, g in zip(watched, grads):
+        c = p.detach().clone().requires_grad_(True)
+        c.grad = g.detach().clone()
+        clones.append(c)
+    group = inner.param_groups[0]
+    local = torch.optim.AdamW(clones, lr=group["lr"], betas=group["betas"],
+                              eps=group["eps"],
+                              weight_decay=group["weight_decay"])
+    for c, p in zip(clones, watched):
+        if inner.state[p]:
+            local.state[c] = {k: v.clone() for k, v in inner.state[p].items()}
+    local.step()
+    return [(c.detach() - p.detach()).float().cpu()
+            for c, p in zip(clones, watched)]
+
+
+def np2_bert_adasum_worker(out_dir: str) -> None:
+    """One rank of the np=2 BERT-large job with Adasum (BASELINE config 4):
+    weights from a per-rank seed, rank 0's weights and optimizer state
+    broadcast, then ``hvd.DistributedOptimizer(AdamW, op=hvd.Adasum)`` for
+    ``NP2_ADASUM_STEPS`` steps on the rank's shard.  Before each step the
+    watched tensors' local AdamW steps are taken on clones, from a second
+    forward and backward on the same shard."""
+    t_start = time.perf_counter()
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    assert size == 2 and dev == torch.device("cuda", 0), (size, dev)
+    cfg = transformer.bert_large_config(max_len=BERT_SEQ, causal=False)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(1234 + rank)).to(dev)
+    params = list(model.named_parameters())
+    watched = [dict(params)[name] for name in NP2_BERT_WATCHED]
+    assert len(params) == BERT_PARAMS
+    inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(inner, root_rank=0)
+    opt = hvd.DistributedOptimizer(inner, named_parameters=params,
+                                   op=hvd.Adasum)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (size * NP2_BERT_BATCH,
+                                               BERT_SEQ),
+                           device=dev, generator=gen)
+    shard = tokens[rank * NP2_BERT_BATCH:(rank + 1) * NP2_BERT_BATCH]
+    batch = {"x": shard.contiguous(), "y": shard.contiguous()}
+    del tokens
+    names = [f"adasum.delta.{name}" for name in NP2_BERT_WATCHED]
+    op_seconds, outputs, windows = adasum_probe(set(names))
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for _ in range(NP2_ADASUM_STEPS):
+        model.train()
+        grads = torch.autograd.grad(
+            cross_entropy_loss(model(batch["x"]), batch["y"]), watched)
+        local = local_adamw_steps(inner, watched, grads)
+        del grads
+        old = [p.detach().clone() for p in watched]
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        kernel = dict(adasum_kernels.LAUNCHES)
+        counts = dict(cuda_backend.stats)
+        op_seconds[0] = 0.0
+        outputs.clear()
+        windows.clear()
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        steps.append({
+            "loss": float(loss), "ms": ms, "adasum_ms": 1e3 * op_seconds[0],
+            **{k: fa.LAUNCHES[k] - launches[k] for k in FLASH_KERNELS},
+            **{k: adasum_kernels.LAUNCHES[k] - kernel[k] for k in kernel},
+            **{k: cuda_backend.stats[k] - counts[k] for k in counts},
+            "hash": _sha_all(p for _, p in params),
+            "windows": list(windows),
+            "local": local,
+            "applied": [outputs[n].float().cpu() for n in names],
+            # The optimizer wrote old + the reduced delta, nothing else.
+            "written": all(torch.equal(p.detach(), o + outputs[n])
+                           for p, o, n in zip(watched, old, names))})
+        del old
+    out = {"steps": steps,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    hvd.shutdown()
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    print("NP2_BERT_ADASUM_DONE", rank, flush=True)
+
+
+def phase_np2_bert_adasum(card_line: str, average: dict) -> dict:
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_bert_adasum.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(2, ["np2-bert-adasum", out_dir],
+                                    LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 BERT-large Adasum job failed with "
+                                 f"exit {code}:\n{out}\n{err}")
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+    launches = 0
+    for r, rk in enumerate(ranks):
+        assert len(rk["steps"]) == NP2_ADASUM_STEPS, r
+        for step, s in enumerate(rk["steps"]):
+            for kernel in FLASH_KERNELS:
+                assert s[kernel] == BERT_LAYERS, (r, step, kernel, s[kernel])
+            assert s["adasum_tensors"] == BERT_PARAMS, (r, step, s)
+            assert s["allreduce_tensors"] == 0, (r, step, s)
+            step_launches = sum(s[k] for k in adasum_kernels.LAUNCHES)
+            assert step_launches > 0, (r, step, s)
+            # One window per triplets and per combine launch.
+            assert all(s[k] == len(s["windows"])
+                       for k in adasum_kernels.LAUNCHES), (r, step, s)
+            launches += step_launches
+            assert s["written"], (r, step)
+            assert math.isfinite(s["loss"]), (r, step, s["loss"])
+    for step in range(NP2_ADASUM_STEPS):
+        h0, h1 = (rk["steps"][step]["hash"] for rk in ranks)
+        if h0 != h1:
+            raise AssertionError(f"Adasum step {step}: parameters differ "
+                                 f"across ranks ({h0} vs {h1})")
+    # Step 1: the applied update against the fp64 closed form of the two
+    # local steps, rank 0's the lower subgroup's ``a``, per tensor; the
+    # plain mean of the two (the control) must miss the closed forms of
+    # the three together by more than the limit.  (A tensor whose two
+    # first AdamW steps, ~lr·sign(g), agree in every sign has Adasum equal
+    # to the mean: its own miss is printed, not gated.)
+    first = [rk["steps"][0] for rk in ranks]
+    worst, misses, closed_all, mean_all = 0.0, {}, [], []
+    for i, name in enumerate(NP2_BERT_WATCHED):
+        assert torch.equal(first[0]["applied"][i], first[1]["applied"][i])
+        closed = adasum64(first[0]["local"][i], first[1]["local"][i])
+        applied = first[0]["applied"][i].double().reshape(-1)
+        mean = (first[0]["local"][i].double().reshape(-1)
+                + first[1]["local"][i].double().reshape(-1)) / 2
+        err = ((applied - closed).norm() / closed.norm()).item()
+        misses[name] = ((mean - closed).norm() / closed.norm()).item()
+        closed_all.append(closed)
+        mean_all.append(mean)
+        worst = max(worst, err)
+        if err > NP2_ADASUM_REL_RMS:
+            raise AssertionError(
+                f"Adasum step 1 {name}: applied update vs the closed form "
+                f"of the local steps, relative RMS {err!r} (limit "
+                f"{NP2_ADASUM_REL_RMS})")
+    closed_all, mean_all = torch.cat(closed_all), torch.cat(mean_all)
+    control = ((mean_all - closed_all).norm() / closed_all.norm()).item()
+    if control <= NP2_ADASUM_REL_RMS:
+        raise AssertionError(f"Adasum step 1: the plain mean misses the "
+                             f"closed form by {control!r}, not more than "
+                             f"the limit {NP2_ADASUM_REL_RMS}: {misses}")
+    for r, rk in enumerate(ranks):
+        per = rk["steps"]
+        print(f"np2 BERT Adasum: rank {r} BERT-large batch "
+              f"{NP2_BERT_BATCH} x {BERT_SEQ} bf16, AdamW, op=Adasum, host "
+              f"plane, ms/step {[round(s['ms'], 1) for s in per]} (in the "
+              f"Adasum op {[round(s['adasum_ms'], 1) for s in per]}); "
+              f"Average in the same call: ms/step "
+              f"{[round(v, 1) for v in average['ms'][r]]} (in the plane's "
+              f"op {[round(v, 1) for v in average['plane_ms'][r]]}); losses "
+              f"{[round(s['loss'], 4) for s in per]}, Adasum responses per "
+              f"step {[s['adasum_responses'] for s in per]}, kernel "
+              f"launches per step "
+              f"{[{k: s[k] for k in adasum_kernels.LAUNCHES} for s in per]}"
+              f", peak {rk['peak_mem_gb']:.1f} GB, worker "
+              f"{rk['seconds']:.1f}s [{card_line}]", flush=True)
+    return {"seconds": seconds, "worst_rel_rms": worst,
+            "control_rel_rms": control, "control_per_tensor": misses,
+            "launches": launches,
+            "windows": [[s["windows"] for s in rk["steps"]] for rk in ranks]}
+
+
+def phase_adasum_windows(windows: list, card_line: str) -> dict:
+    """The Adasum kernels at the main path's own shapes: every window
+    ``(entry sizes, lo, hi)`` that phase 13's ranks handed them, held
+    against the plain versions on fresh inputs (``check_adasum_layout``)
+    and timed.  ``windows[r][step]`` is rank r's list for that step; a
+    window that recurs is checked and timed once.  Returns the rows, and
+    the kernels', plain and bound ms per step and rank (the sum over its
+    windows), averaged over ranks and steps."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, totals = {}, []
+    keys = ("ms", "plain_ms", "bound_ms", "elements")
+    for r, per_step in enumerate(windows):
+        for step, step_windows in enumerate(per_step):
+            total = dict.fromkeys(keys, 0)
+            for sizes, lo, hi in step_windows:
+                key = (tuple(sizes), lo, hi)
+                if key not in rows:
+                    rows[key] = check_adasum_layout(
+                        f"np2 window [{lo}, {hi}) of {len(sizes)} entries",
+                        sizes, lo, hi, False, True, gen=gen)
+                    torch.cuda.empty_cache()
+                for k in keys:
+                    total[k] += rows[key][k]
+            totals.append(total)
+            print(f"adasum windows: rank {r} step {step + 1}: "
+                  f"{len(step_windows)} windows, {total['elements']} "
+                  f"elements, kernels {total['ms']!r} ms (bound "
+                  f"{total['bound_ms']!r}), plain {total['plain_ms']!r} "
+                  f"ms; elements per window "
+                  f"{[hi - lo for _, lo, hi in step_windows]} "
+                  f"[{card_line}]", flush=True)
+    for row in rows.values():
+        print("adasum window", json.dumps(row), flush=True)
+    mean = {k: sum(t[k] for t in totals) / len(totals) for k in keys}
+    by = {row["bound_by"] for row in rows.values()}
+    return {"rows": list(rows.values()), "totals": totals, **mean,
+            "bound_by": "bytes" if by == {"bytes"} else "operations"}
 
 
 def np2_stall_worker(out_dir: str) -> None:
@@ -1403,8 +1863,9 @@ def phase_np2_stall(card_line: str) -> dict:
 
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
-    for key in fa.LAUNCHES:
-        fa.LAUNCHES[key] = 0
+    for launches in (fa.LAUNCHES, adasum_kernels.LAUNCHES):
+        for key in launches:
+            launches[key] = 0
     for key in cuda_backend.stats:
         cuda_backend.stats[key] = 0
 
@@ -1419,6 +1880,8 @@ def main() -> int:
             np2_worker(sys.argv[3])
         elif sys.argv[2:3] == ["np2-bert"]:
             np2_bert_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["np2-bert-adasum"]:
+            np2_bert_adasum_worker(sys.argv[3])
         elif sys.argv[2:3] == ["np2-stall"]:
             np2_stall_worker(sys.argv[3])
         elif sys.argv[2:3] == ["nccl-np2"]:
@@ -1434,9 +1897,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build.compile_all(["matmul_bn_stats", "flash_attention"])
+    build.compile_all(["matmul_bn_stats", "flash_attention", "adasum"])
     conv_bn_stats._kernel()
     fa._kernels()
+    adasum_kernels._kernels()
     print(f"build: {time.perf_counter() - t0:.2f}s total, nvcc "
           f"{build.build_seconds}", flush=True)
     for name, log in build.build_log.items():
@@ -1503,9 +1967,12 @@ def main() -> int:
           f"[{card_line}]", flush=True)
 
     torch.cuda.empty_cache()
+    adasum_rows = phase_adasum_kernels(bert["sizes"], main["sizes"])
+
+    torch.cuda.empty_cache()
     nccl = phase_nccl_one_rank()
-    print(f"nccl plane, one rank: allreduce bit-exact against the plain "
-          f"arithmetic, broadcast, allgather and alltoall "
+    print(f"nccl plane, one rank: allreduce and Adasum bit-exact against "
+          f"the plain arithmetic, broadcast, allgather and alltoall "
           f"against their inputs' bits, entries {nccl}", flush=True)
     print(f"nccl plane at np=2 on one card refused: "
           f"{phase_nccl_np2_refused()}", flush=True)
@@ -1536,6 +2003,28 @@ def main() -> int:
           f"{NP2_GRAD_REL_RMS}; unhalved control "
           f"{bert2['control_rel_rms']!r}); {bert2['evictions']} cache "
           f"evictions [{card_line}]", flush=True)
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    adasum2 = phase_np2_bert_adasum(card_line, bert2)
+    print(f"np2 BERT Adasum: 2 ranks x {NP2_ADASUM_STEPS} steps in "
+          f"{adasum2['seconds']:.1f}s (launch included), parameters "
+          f"identical across ranks after every step, {BERT_PARAMS} tensors "
+          f"through Adasum per step on each rank, {adasum2['launches']} "
+          f"Adasum kernel launches; in step 1 the applied update is within "
+          f"{adasum2['worst_rel_rms']!r} of the closed form of the two "
+          f"local AdamW steps (limit {NP2_ADASUM_REL_RMS}; the plain "
+          f"mean's control {adasum2['control_rel_rms']!r}; per tensor "
+          f"{adasum2['control_per_tensor']}) [{card_line}]",
+          flush=True)
+
+    torch.cuda.empty_cache()
+    windows = phase_adasum_windows(adasum2["windows"], card_line)
+    print(f"adasum at the main path's windows: {len(windows['rows'])} "
+          f"distinct windows held against the plain versions; per step "
+          f"and rank {windows['ms']!r} ms of kernels (bound "
+          f"{windows['bound_ms']!r}, {windows['bound_by']}), plain "
+          f"{windows['plain_ms']!r} ms [{card_line}]", flush=True)
 
     stall = phase_np2_stall(card_line)
     print(f"np2 stall: every rank stopped with the stall text in "
@@ -1581,6 +2070,21 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": BERT_LAYERS * t["library_ms"],
         })
+    # Per np=2 step and rank: the triplets and the combine over each of
+    # the rank's windows of phase 13, summed.
+    summary["kernels"].append({
+        "name": "adasum", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/adasum.cu",
+        "replaces": "horovod_tpu/backend/xla.py:346, "
+                    "horovod_tpu/backend/adasum.py:68",
+        "launches": adasum2["launches"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in adasum_rows + windows["rows"]),
+        "ms": windows["ms"], "plain_ms": windows["plain_ms"],
+        "bound_ms": windows["bound_ms"], "bound_by": windows["bound_by"],
+        # No one PyTorch call computes a per-entry Adasum.
+        "library_ms": None,
+    })
     print(card_line, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

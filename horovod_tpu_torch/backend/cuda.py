@@ -65,8 +65,8 @@ from ..core.tensor_queue import Status, TensorTableEntry
 #: ``<kind>_tensors`` (entries), so a run can show that tensors went
 #: through them.
 stats: Dict[str, int] = {f"{kind}_{what}": 0
-                         for kind in ("allreduce", "broadcast", "allgather",
-                                      "alltoall")
+                         for kind in ("allreduce", "adasum", "broadcast",
+                                      "allgather", "alltoall")
                          for what in ("responses", "tensors")}
 
 

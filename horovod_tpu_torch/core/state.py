@@ -9,10 +9,10 @@ wakes every cycle, runs one negotiation round and executes the agreed
 responses; framework threads enqueue named tensors with callbacks.
 
 Join (``operations.cc:1146-1170``): a rank that has joined executes every
-allreduce its peers negotiate without it, contributing zeros of the
-response's dtype and size, on the card when its peers' tensors are there,
-so that it takes the same plane as they do; ``enqueue_join`` returns an
-event set when every rank has joined.
+allreduce and Adasum its peers negotiate without it, contributing zeros of
+the response's dtype and size (``adasum(0, g) == g``), on the card when its
+peers' tensors are there, so that it takes the same plane as they do;
+``enqueue_join`` returns an event set when every rank has joined.
 
 A loop that dies leaves its error sticky (``async_error``): the pending
 handles fail with its text and so does every later enqueue.  At size > 1
@@ -46,6 +46,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..backend.adasum import Adasum
 from ..backend.cuda import (
     LOCAL,
     Allgather,
@@ -72,6 +73,7 @@ log = get_logger("horovod_tpu_torch.state")
 #: ``horovod_tpu/core/state.py:509-545``).
 _OPS = {
     ResponseType.ALLREDUCE: Allreduce,
+    ResponseType.ADASUM: Adasum,
     ResponseType.BROADCAST: Broadcast,
     ResponseType.ALLGATHER: Allgather,
     ResponseType.ALLTOALL: Alltoall,
@@ -471,10 +473,12 @@ class HorovodGlobalState:
                           callback: Callable[[Status, TensorTableEntry], None],
                           prescale_factor: float = 1.0,
                           postscale_factor: float = 1.0,
-                          output: Optional[torch.Tensor] = None) -> None:
-        """Queue a named allreduce; ``output`` is where the result goes
-        (the input itself for the in-place flavors)."""
-        self._enqueue(name, tensor, callback, RequestType.ALLREDUCE, output,
+                          output: Optional[torch.Tensor] = None,
+                          op: RequestType = RequestType.ALLREDUCE) -> None:
+        """Queue a named allreduce (``op`` ALLREDUCE, the sum, or ADASUM);
+        ``output`` is where the result goes (the input itself for the
+        in-place flavors)."""
+        self._enqueue(name, tensor, callback, op, output,
                       prescale_factor=prescale_factor,
                       postscale_factor=postscale_factor)
 

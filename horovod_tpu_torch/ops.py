@@ -5,7 +5,9 @@ of ``horovod_tpu/frameworks/torch/__init__.py:94-195`` (the reference's
 ``horovod/torch/mpi_ops.py:85-630``): blocking and ``*_async`` allreduce,
 broadcast and allgather, the in-place ``_`` flavors, ``alltoall``,
 ``join``, ``barrier``, ``poll`` and ``synchronize``.  Average is a
-postscale of 1/size, like the reference (``operations.cc:953-956``).
+postscale of 1/size, like the reference (``operations.cc:953-956``);
+Adasum (``backend/adasum.py``) takes the scales as given and floating-point
+tensors only.
 
 The out-of-place flavors also take what the JAX bridge's ``_to_numpy``
 takes (numpy arrays, lists, Python scalars) and return CPU tensors for it;
@@ -22,6 +24,7 @@ import torch
 
 from .common.exceptions import HorovodInternalError
 from .core.handle_manager import HandleManager
+from .core.messages import RequestType
 from .core.state import global_state
 from .core.tensor_queue import Status
 
@@ -51,11 +54,7 @@ def _resolve_op(average: Optional[bool], op: Optional[str]) -> str:
         op = Average if (average or average is None) else Sum
     elif average is not None:
         raise ValueError("specify either average or op, not both")
-    if op == Adasum:
-        raise NotImplementedError(
-            "Adasum arrives with its own slice of the port (ROADMAP.md, "
-            "queue A, Adasum); use Sum or Average")
-    if op not in (Sum, Average):
+    if op not in (Sum, Average, Adasum):
         raise ValueError(f"unknown reduce op {op!r}")
     return op
 
@@ -92,12 +91,20 @@ def _allreduce_async(tensor: torch.Tensor, output: Optional[torch.Tensor],
                      postscale_factor) -> int:
     state = global_state()
     state._check_initialized()
-    if _resolve_op(average, op) == Average:
+    op = _resolve_op(average, op)
+    tensor = _as_tensor(tensor)
+    if op == Average:
         postscale_factor = postscale_factor / state.topo.size
+    if op == Adasum and not tensor.is_floating_point():
+        # The JAX host plane would combine in floats and cast back: a
+        # result that means nothing for integers.
+        raise ValueError(f"Adasum combines floating-point tensors, got "
+                         f"{tensor.dtype}; use Sum or Average")
     name = _auto_name("allreduce", name)
     return _submit(lambda cb: state.enqueue_allreduce(
-        name, _as_tensor(tensor), cb, prescale_factor=prescale_factor,
-        postscale_factor=postscale_factor, output=output))
+        name, tensor, cb, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, output=output,
+        op=RequestType.ADASUM if op == Adasum else RequestType.ALLREDUCE))
 
 
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,

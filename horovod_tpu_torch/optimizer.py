@@ -10,6 +10,7 @@ runtime reduces gradients while the rest of backward runs.  ``step()``
 synchronizes, then steps the wrapped optimizer.  With
 ``backward_passes_per_step=N`` the gradients of N backward passes accumulate
 in ``p.grad`` and the allreduce's postscale of 1/N averages them.
+``op=Adasum`` wraps it in the delta-space optimizer instead.
 """
 
 from __future__ import annotations
@@ -112,6 +113,58 @@ class _DistributedOptimizer:
         return self._opt.zero_grad(*args, **kwargs)
 
 
+class _DistributedAdasumOptimizer:
+    """Adasum in delta space (the JAX bridge's
+    ``horovod_tpu/frameworks/torch/__init__.py:413-465``; reference
+    ``torch/optimizer.py:210-379``): ``step()`` runs the wrapped optimizer
+    locally, then combines each parameter's step ``new − old`` across
+    ranks with Adasum and applies the result to the old weights, merging
+    whole optimizer steps instead of averaging gradients.  Like the bridge,
+    it steps once and then reduces (the reference overlaps per-parameter
+    steps with backward through hooks; element-wise optimizers give the
+    same result either way)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 named_parameters: Optional[Iterable[Tuple[str, torch.nn.Parameter]]],
+                 compression):
+        self._opt = optimizer
+        self._compression = compression
+        self._names: Dict[torch.nn.Parameter, str] = \
+            {p: n for n, p in named_parameters} \
+            if named_parameters is not None else {}
+
+    def __getattr__(self, item):
+        return getattr(self._opt, item)
+
+    def synchronize(self) -> None:
+        raise HorovodInternalError(
+            "Skipping synchronization is not supported when using Adasum "
+            "optimizer (reference optimizer.py:346)")
+
+    def step(self, closure=None):
+        old = {p: p.detach().clone()
+               for group in self._opt.param_groups for p in group["params"]
+               if p.grad is not None}
+        loss = self._opt.step(closure)
+        pending = []
+        for gi, group in enumerate(self._opt.param_groups):
+            for pi, p in enumerate(group["params"]):
+                if p not in old:
+                    continue
+                name = self._names.get(p, f"group{gi}.param{pi}")
+                comp, ctx = self._compression.compress(p.detach() - old[p])
+                pending.append((p, ops.allreduce_async(
+                    comp, op=ops.Adasum, name=f"adasum.delta.{name}"), ctx))
+        for p, handle, ctx in pending:
+            delta = self._compression.decompress(ops.synchronize(handle), ctx)
+            with torch.no_grad():
+                p.copy_(old[p] + delta.reshape(p.shape).to(p.dtype))
+        return loss
+
+    def zero_grad(self, *args, **kwargs):
+        return self._opt.zero_grad(*args, **kwargs)
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
@@ -120,11 +173,21 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          prescale_factor: float = 1.0,
                          postscale_factor: float = 1.0):
     """Wrap ``optimizer`` so that ``step()`` applies gradients allreduced
-    across ranks with ``op`` (Average or Sum)."""
+    across ranks with ``op`` (Average or Sum), or, with ``op=Adasum``, its
+    own steps combined across ranks by Adasum (the JAX bridge's factory,
+    ``horovod_tpu/frameworks/torch/__init__.py:468-491``)."""
     if op == ops.Adasum:
-        raise NotImplementedError(
-            "op=Adasum (the delta-space optimizer) arrives with its own "
-            "slice of the port (ROADMAP.md, queue A, Adasum)")
+        if backward_passes_per_step != 1:
+            raise ValueError(
+                "backward_passes_per_step > 1 is not supported with "
+                "op=Adasum (the delta-space optimizer communicates whole "
+                "optimizer steps; accumulate before calling step())")
+        if prescale_factor != 1.0 or postscale_factor != 1.0:
+            raise ValueError(
+                "op=Adasum takes no prescale_factor or postscale_factor: "
+                "the delta-space optimizer combines whole optimizer steps")
+        return _DistributedAdasumOptimizer(optimizer, named_parameters,
+                                           compression)
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     return _DistributedOptimizer(

@@ -26,6 +26,7 @@ import optax
 import pytest
 import torch
 
+import horovod_tpu.torch as jax_torch
 import horovod_tpu_torch as hvd
 from horovod_tpu.common.topology import ProcessTopology as JaxTopology
 from horovod_tpu.core import controller as jax_controller
@@ -202,12 +203,61 @@ def test_datatype_round_trips_torch_and_matches_jax_numbering(dtype):
     assert theirs.itemsize == dtype.itemsize
 
 
-def test_adasum_waits_for_its_slice(runtimes):
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.allreduce(torch.ones(3), op=hvd.Adasum)
-    p = torch.nn.Parameter(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), op=hvd.Adasum)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adasum_at_size_one_applies_the_scales_like_jax(runtimes, dtype):
+    """At size 1 Adasum is the scales: bit-equal to the JAX package's
+    device path (``XlaAdasum``: widen, multiply by prescale·postscale,
+    round once) and within 2 ulps of the dtype of the JAX bridge's, whose
+    host path (``AdasumAllreduce``) rounds in the dtype after each scale."""
+    values = _values(dtype, seed=4)
+    core = np.asarray(jax_ops.allreduce(
+        jnp.asarray(values), op="adasum", prescale_factor=0.3,
+        postscale_factor=1.7, name=f"jax.adasum.{dtype}"))
+    if dtype == "float32":
+        bridge = jax_torch.allreduce(
+            torch.from_numpy(values.copy()), op=jax_torch.Adasum,
+            prescale_factor=0.3, postscale_factor=1.7,
+            name="bridge.adasum").numpy()
+    else:   # the bridge cannot hand bf16 back: its core op on numpy
+        bridge = np.asarray(jax_ops.allreduce(
+            values, op="adasum", prescale_factor=0.3, postscale_factor=1.7,
+            name="bridge.adasum.bf16"))
+    out = hvd.allreduce(_to_torch(values, dtype), op=hvd.Adasum,
+                        prescale_factor=0.3, postscale_factor=1.7)
+    assert out.dtype == _TORCH_DTYPES[dtype]
+    np.testing.assert_array_equal(_to_numpy(out), core)
+    ulp = 2.0 ** -23 if dtype == "float32" else 2.0 ** -7
+    got, want = _to_numpy(out).astype(np.float64), bridge.astype(np.float64)
+    assert np.all(np.abs(got - want) <= 2 * ulp * np.abs(want))
+
+
+@pytest.mark.parametrize("inner", ["sgd", "adamw"])
+def test_adasum_optimizer_at_size_one_is_the_inner_step(runtimes, inner):
+    """``old + adasum(new - old)`` over one rank is the inner step within
+    one fp32 ulp, and the JAX bridge's, bit for bit."""
+    rng = np.random.RandomState(6)
+    w0 = rng.randn(4, 3).astype(np.float32)
+    grads = [rng.randn(4, 3).astype(np.float32) for _ in range(2)]
+
+    def run(make_distributed, name):
+        p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+        opt = torch.optim.SGD([p], lr=0.1, momentum=0.9) if inner == "sgd" \
+            else torch.optim.AdamW([p], lr=0.01)
+        if make_distributed is not None:
+            opt = make_distributed(opt, [(name, p)])
+        for g in grads:
+            opt.zero_grad()
+            (p * torch.from_numpy(g)).sum().backward()
+            opt.step()
+        return p.detach().numpy()
+
+    plain = run(None, "")
+    ours = run(lambda opt, named: hvd.DistributedOptimizer(
+        opt, named_parameters=named, op=hvd.Adasum), f"w.port.{inner}")
+    theirs = run(lambda opt, named: jax_torch.DistributedOptimizer(
+        opt, named_parameters=named, op=jax_torch.Adasum), f"w.jax.{inner}")
+    assert np.all(np.abs(ours - plain) <= np.spacing(np.abs(plain)))
+    np.testing.assert_array_equal(ours, theirs)
 
 
 def test_init_without_device_needs_cuda():
