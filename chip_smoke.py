@@ -84,7 +84,10 @@ Phases, in order; any failure raises and the exit code is not 0:
     serialized request and hit the cache 161 times.  The phase runs again
     with ``--cache-capacity 0`` and must end with the same parameter hash,
     bit for bit, after every step (at two ranks the sum ``a + b`` does not
-    depend on how the responses are bucketed).
+    depend on how the responses are bucketed).  Each rank then sums one
+    seeded bf16 and one fp16 tensor of ``NARROW_ELEMENTS`` on the host
+    plane (fault C7): the result must be the bits of the fp32 sum rounded
+    once, and the bytes the rank handed to the group 2 per element.
 12. BERT-large at np=2 (``--worker np2-bert``), the repo's example script's
     start-up: full BERT-large on each rank from its own seed
     (``1234 + rank``), local AdamW steps on its own batch (one on rank 0,
@@ -137,6 +140,33 @@ Phases, in order; any failure raises and the exit code is not 0:
     within ``STALL_ABORT_S``, rank 1's next enqueue the same text, both
     flight-recorder dumps must name it, and the job must end.
 
+15, 16. The whole step as one CUDA graph: ResNet-50 (b128, SGD-momentum)
+    and BERT-large (b8 x 512, ``AdamW(capturable=True)``), each first
+    through the eager hook path (``hvd.DistributedOptimizer``) for
+    ``GRAPH_STEPS`` steps, then from the same seed on the same batches
+    through ``hvd.make_overlapped_train_step`` (one eager step, the
+    capture, replays), cuDNN deterministic on both.  Asserts finite
+    losses; the parameters after ``GRAPH_STEPS`` steps the same bits as
+    the eager path's, or within ``GRAPH_REL_RMS`` (the differing tensors
+    printed); 36 B8 launches (ResNet) or 24 of each flash kernel (BERT)
+    captured per step; no runtime response during the graph path.  Then
+    ``GRAPH_TIMED_STEPS`` more steps of each path are timed in this one
+    process and their ratio printed.
+17. ``hvd.distributed_value_and_grad`` at 2 layers of BERT-large width
+    against the hook path's gradients on the same tokens, within
+    ``VALUE_AND_GRAD_REL_RMS``; the flash kernels launched.
+18. BERT-large at np=2 with ``DistributedOptimizer(overlap=True)``
+    (``--worker np2-overlap``): per-rank seeds, rank 0's weights
+    broadcast, ``OVERLAP_STEPS`` steps of ``OVERLAP_PASSES`` microbatches
+    of ``OVERLAP_BATCH`` x 512 per rank on the host plane, then the same
+    with ``overlap=False``.  Asserts the weights equal across ranks in
+    each mode, each mode within ``OVERLAP_REL_RMS`` of the other, one
+    fused tensor and one response per microbatch with overlap (292
+    tensors per step without), finite losses, and that
+    ``make_overlapped_train_step`` on the host plane at np=2 raises the
+    text that names ``HOROVOD_DATA_PLANE=nccl`` and
+    ``DistributedOptimizer(overlap=True)``.
+
 The last two lines are the kernels' JSON summary (B8, the three flash
 kernels and the Adasum kernels, whose launches are phase 13's and whose
 times are the sums over phase 13's windows per step and rank, averaged
@@ -144,13 +174,15 @@ over its ranks and steps) and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
-``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR`` and ``--worker
-nccl-np2`` are the launched workers of phases 11, 12, 13, 14 and 10.
+``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR``, ``--worker
+np2-overlap DIR`` and ``--worker nccl-np2`` are the launched workers of
+phases 11, 12, 13, 14, 18 and 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -342,6 +374,26 @@ NEGOTIATION_COUNTERS = ("serialized_request_count", "cache_hit_count",
                         "fast_cycle_count", "idle_fast_cycle_count")
 LAUNCH_TIMEOUT = 300
 REPO = Path(__file__).resolve().parent
+# Fault C7: the elements of the bf16 and fp16 host-plane Sums in the np=2
+# ResNet worker.
+NARROW_ELEMENTS = 16 * 2 ** 20
+# The whole step as one CUDA graph against the eager hook path, from the
+# same seed on the same batches: the parameters after GRAPH_STEPS steps the
+# same bits, or within GRAPH_REL_RMS relative RMS where an op's order
+# differs between the two; then GRAPH_TIMED_STEPS more steps of each timed.
+GRAPH_STEPS = 3
+GRAPH_TIMED_STEPS = 5
+GRAPH_REL_RMS = 1e-6
+# distributed_value_and_grad against the hook path, 2 layers at BERT-large
+# width: the gradients' relative RMS.
+VALUE_AND_GRAD_REL_RMS = 1e-6
+# BERT-large at np=2 with DistributedOptimizer(overlap=True): microbatches
+# of 2 x 512 per rank, 2 per step, 2 steps; the weights against the same
+# job with overlap=False, relative RMS.
+OVERLAP_BATCH = 2
+OVERLAP_PASSES = 2
+OVERLAP_STEPS = 2
+OVERLAP_REL_RMS = 1e-6
 
 
 def card() -> str:
@@ -1152,10 +1204,36 @@ def np2_worker(out_dir: str) -> None:
             "local": local,
             "applied": [p.grad.float().cpu() for p in watched]})
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    narrow = narrow_ring_probe(rank, dev)
     hvd.shutdown()
-    torch.save({"steps": steps, "peak_mem_gb": peak},
+    torch.save({"steps": steps, "peak_mem_gb": peak, "narrow": narrow},
                os.path.join(out_dir, f"rank{rank}.pt"))
     print("NP2_DONE", rank, flush=True)
+
+
+def narrow_ring_probe(rank: int, dev: torch.device) -> dict:
+    """Fault C7 on the card: one host-plane Sum of a seeded bf16 tensor and
+    one of fp16, each of ``NARROW_ELEMENTS``; per dtype, whether the result
+    is the bits of the fp32 sum of both ranks' tensors rounded once, and
+    the bytes this rank handed to the group."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        values = [torch.randn(NARROW_ELEMENTS, device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(300 + r)).to(dtype)
+                  for r in range(2)]
+        before = cuda_backend.stats["host_ring_bytes_sent"]
+        t0 = time.perf_counter()
+        got = hvd.allreduce(values[rank], op=hvd.Sum,
+                            name=f"narrow.{dtype}")
+        seconds = time.perf_counter() - t0
+        once = (values[0].float() + values[1].float()).to(dtype)
+        out[str(dtype)] = {
+            "same_bits": torch.equal(got.view(torch.int16),
+                                     once.view(torch.int16)),
+            "sent": cuda_backend.stats["host_ring_bytes_sent"] - before,
+            "ms": 1e3 * seconds}
+    return out
 
 
 def run_np2_resnet(launcher_args: list = ()) -> tuple:
@@ -1210,6 +1288,20 @@ def phase_np2_resnet(card_line: str) -> dict:
                 f"step {step}: rank 1 sent {s['serialized_request_count']} "
                 f"serialized requests and hit the cache "
                 f"{s['cache_hit_count']} times (expected 0 and {NP2_PARAMS})")
+    # Fault C7: bf16 and fp16 cross the host plane at their own width,
+    # each hop rounding once (once in all at np=2).
+    narrow_bytes = 2 * 2 * NARROW_ELEMENTS // 2     # 2·2·(P−1)/P per element
+    for r, rank_out in enumerate(ranks):
+        for dtype, got in rank_out["narrow"].items():
+            if not got["same_bits"] or got["sent"] != narrow_bytes:
+                raise AssertionError(
+                    f"rank {r} {dtype}: host-plane Sum of {NARROW_ELEMENTS} "
+                    f"elements {got}; expected the fp32 sum rounded once, "
+                    f"and {narrow_bytes} bytes sent")
+        print(f"np2 narrow ring: rank {r} {NARROW_ELEMENTS} elements, "
+              f"{json.dumps(rank_out['narrow'])} (the fp32 sum rounded once; "
+              f"{narrow_bytes} bytes sent, 2 per element) [{card_line}]",
+              flush=True)
     # The same job with the cache off: the same parameters, bit for bit.
     off_seconds, off = run_np2_resnet(["--cache-capacity", "0"])
     for step in range(NP2_STEPS):
@@ -1861,6 +1953,290 @@ def phase_np2_stall(card_line: str) -> dict:
     return {"seconds": seconds, "abort_s": r0["abort_s"], "text": text}
 
 
+# ---------------------------------------------------------------------------
+# the whole step as one CUDA graph, distributed_value_and_grad, overlap
+# ---------------------------------------------------------------------------
+
+
+def graph_setup(kind: str, dev: torch.device):
+    """(model, optimizer) from seed 0: ResNet-50 with SGD-momentum, or
+    BERT-large with AdamW(capturable=True), as both paths take them."""
+    if kind == "resnet":
+        model = resnet.ResNet50(
+            num_classes=1000, dtype=torch.bfloat16, fuse_conv1x1_bn=True,
+            generator=torch.Generator().manual_seed(0)).to(dev)
+        return model, torch.optim.SGD(model.parameters(), lr=0.01,
+                                      momentum=0.9)
+    cfg = transformer.bert_large_config(max_len=BERT_SEQ, causal=False)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    return model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                    weight_decay=1e-4, capturable=True)
+
+
+def graph_batches(kind: str, dev: torch.device) -> list:
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batches = []
+    for _ in range(GRAPH_STEPS):
+        if kind == "resnet":
+            batches.append({
+                "x": torch.randn(BATCH, IMAGE, IMAGE, 3, device=dev,
+                                 generator=gen),
+                "y": torch.randint(0, 1000, (BATCH,), device=dev,
+                                   generator=gen)})
+        else:
+            tokens = torch.randint(0, 30522, (BERT_BATCH, BERT_SEQ),
+                                   device=dev, generator=gen)
+            batches.append({"x": tokens, "y": tokens})
+    return batches
+
+
+def graph_loss(model, batch) -> torch.Tensor:
+    return cross_entropy_loss(model(batch["x"]), batch["y"])
+
+
+def timed_steps(fn, n: int) -> float:
+    """ms per call of ``fn`` over ``n`` calls, the card idle at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_graph(kind: str, card_line: str) -> dict:
+    """Phases 15 and 16: the eager hook path, then
+    ``make_overlapped_train_step``, from the same seed on the same batches
+    in this one process; the parameters after ``GRAPH_STEPS`` steps, the
+    kernels captured, no runtime response in a replay, and both step
+    times."""
+    # cuDNN's deterministic algorithms on both paths: the same bits.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    hvd.init()
+    dev = hvd.device()
+    batches = graph_batches(kind, dev)
+    model, inner = graph_setup(kind, dev)
+    params = list(model.named_parameters())
+    opt = hvd.DistributedOptimizer(inner, named_parameters=params)
+    eager_losses = [float(train_step(model, opt, b)) for b in batches]
+    eager = [p.detach().clone() for _, p in params]
+    eager_ms = timed_steps(lambda: train_step(model, opt, batches[0]),
+                           GRAPH_TIMED_STEPS)
+    del model, inner, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, inner = graph_setup(kind, dev)
+    model.train()
+    params = list(model.named_parameters())
+    step = hvd.make_overlapped_train_step(model, graph_loss, inner)
+    responses = cuda_backend.stats["allreduce_responses"]
+    graph_losses = [float(step(b)) for b in batches]
+    same = [torch.equal(p.detach(), e) for (_, p), e in zip(params, eager)]
+    differing = [name for (name, _), eq in zip(params, same) if not eq]
+    worst = max((rel_rms(p.detach(), e) for (_, p), e, eq
+                 in zip(params, eager, same) if not eq), default=0.0)
+    graph_ms = timed_steps(lambda: step(batches[0]), GRAPH_TIMED_STEPS)
+    replayed_responses = cuda_backend.stats["allreduce_responses"] - responses
+    captured, launches, replays = dict(step.captured_launches), \
+        step.launches(), step.replays
+    del step, model, inner, params, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    torch.backends.cudnn.deterministic = deterministic
+
+    assert all(math.isfinite(v) for v in eager_losses + graph_losses), \
+        (eager_losses, graph_losses)
+    if worst > GRAPH_REL_RMS:
+        raise AssertionError(
+            f"{kind}: the graph's parameters after {GRAPH_STEPS} steps vs "
+            f"the eager path's: {len(differing)} tensors differ, worst "
+            f"relative RMS {worst!r} (limit {GRAPH_REL_RMS}): {differing}")
+    want = {"matmul_bn_stats": LAUNCHES_PER_STEP if kind == "resnet" else 0,
+            **{k: BERT_LAYERS if kind == "bert" else 0
+               for k in FLASH_KERNELS}}
+    if captured != want:
+        raise AssertionError(f"{kind}: kernels captured per step {captured},"
+                             f" expected {want}")
+    if replayed_responses != 0:
+        raise AssertionError(f"{kind}: {replayed_responses} runtime "
+                             "responses during the graph path")
+    result = {"kind": kind, "eager_ms": eager_ms, "graph_ms": graph_ms,
+              "eager_over_graph": eager_ms / graph_ms,
+              "eager_losses": eager_losses, "graph_losses": graph_losses,
+              "differing_tensors": differing, "worst_rel_rms": worst,
+              "captured_per_step": captured, "replays": replays,
+              "launches_in_replays": launches,
+              "responses_in_replays": replayed_responses}
+    print(f"graph step: {json.dumps(result)} [{card_line}]", flush=True)
+    return result
+
+
+def phase_value_and_grad(card_line: str) -> dict:
+    """Phase 17: ``hvd.distributed_value_and_grad`` against the hook path's
+    gradients, 2 layers at BERT-large width on the card."""
+    hvd.init()
+    dev = hvd.device()
+    cfg = transformer.bert_large_config(num_layers=2, max_len=256)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(5)).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(6))
+    params = dict(model.named_parameters())
+    before = dict(fa.LAUNCHES)
+    value, grads = hvd.distributed_value_and_grad(
+        lambda p, t: cross_entropy_loss(model(t), t))(params, tokens)
+    launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.0),
+                                   named_parameters=list(params.items()))
+    opt.zero_grad(set_to_none=True)
+    cross_entropy_loss(model(tokens), tokens).backward()
+    opt.synchronize()
+    errors = {name: rel_rms(grads[name], p.grad) if p.grad.norm() > 0
+              else float(not torch.equal(grads[name], p.grad))
+              for name, p in params.items()}
+    hvd.shutdown()
+    worst = max(errors, key=errors.get)
+    result = {"value": value.item(), "tensors": len(errors),
+              "worst": worst, "worst_rel_rms": errors[worst],
+              "flash_launches": launches}
+    print(f"distributed_value_and_grad: {json.dumps(result)} [{card_line}]",
+          flush=True)
+    if errors[worst] > VALUE_AND_GRAD_REL_RMS or \
+            not all(n == cfg.num_layers for n in launches.values()):
+        raise AssertionError(f"distributed_value_and_grad vs the hook path: "
+                             f"{result} (limit {VALUE_AND_GRAD_REL_RMS})")
+    return result
+
+
+def np2_overlap_worker(out_dir: str) -> None:
+    """One rank of the np=2 overlap job: BERT-large from a per-rank seed,
+    rank 0's weights broadcast, then ``OVERLAP_STEPS`` steps of
+    ``OVERLAP_PASSES`` microbatches through
+    ``DistributedOptimizer(overlap=True)``, and the same from the same
+    weights with ``overlap=False``; first ``make_overlapped_train_step``
+    on the host plane, which must refuse."""
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    cfg = transformer.bert_large_config(max_len=BERT_SEQ, causal=False)
+    gen = torch.Generator(device=dev).manual_seed(4321 + rank)
+    micro = [torch.randint(0, cfg.vocab_size, (OVERLAP_BATCH, BERT_SEQ),
+                           device=dev, generator=gen)
+             for _ in range(OVERLAP_STEPS * OVERLAP_PASSES)]
+    out = {"modes": {}}
+    # Before the job's first collective: a rank that finished early would
+    # stop the other's runtime with its shutdown.
+    tiny = torch.nn.Linear(4, 2).to(dev)
+    try:
+        hvd.make_overlapped_train_step(
+            tiny, lambda m, b: m(b).square().mean(),
+            torch.optim.SGD(tiny.parameters(), lr=0.1))(
+                torch.ones(2, 4, device=dev))
+        out["refusal"] = ""
+    except RuntimeError as e:
+        out["refusal"] = str(e)
+    weights = {}
+    op_seconds = time_host_allreduce()
+    for overlap in (True, False):
+        model = transformer.Transformer(
+            cfg, generator=torch.Generator().manual_seed(1234 + rank)).to(dev)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = list(model.named_parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=params, backward_passes_per_step=OVERLAP_PASSES,
+            overlap=overlap)
+        steps = []
+        for w in range(OVERLAP_STEPS):
+            counts = dict(cuda_backend.stats)
+            op_seconds[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            losses = []
+            for mb in micro[w * OVERLAP_PASSES:(w + 1) * OVERLAP_PASSES]:
+                loss = cross_entropy_loss(model(mb), mb)
+                loss.backward()
+                losses.append(loss.detach())
+            opt.step()
+            torch.cuda.synchronize()
+            steps.append({
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "plane_ms": 1e3 * op_seconds[0],
+                "losses": [float(v) for v in losses],
+                **{k: cuda_backend.stats[k] - counts[k]
+                   for k in ("allreduce_tensors", "allreduce_responses")}})
+        weights[overlap] = torch.cat([p.detach().reshape(-1)
+                                      for _, p in params])
+        out["modes"][str(overlap)] = {"steps": steps,
+                                      "hash": _sha(weights[overlap])}
+        del model, opt, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["rel_rms"] = rel_rms(weights[True], weights[False])
+    del weights
+    hvd.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    print("NP2_OVERLAP_DONE", rank, flush=True)
+
+
+def phase_np2_overlap(card_line: str) -> dict:
+    """Phase 18: the np=2 overlap job's gates."""
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_overlap.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(2, ["np2-overlap", out_dir],
+                                    LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 overlap job failed with exit "
+                                 f"{code}:\n{out}\n{err}")
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+    for mode in ("True", "False"):
+        hashes = {r["modes"][mode]["hash"] for r in ranks}
+        if len(hashes) != 1:
+            raise AssertionError(f"overlap={mode}: weights differ across "
+                                 f"ranks {hashes}")
+    for r, rank_out in enumerate(ranks):
+        for mode, want_tensors in (("True", OVERLAP_PASSES),
+                                   ("False", BERT_PARAMS)):
+            for s in rank_out["modes"][mode]["steps"]:
+                assert all(math.isfinite(v) for v in s["losses"]), s
+                if s["allreduce_tensors"] != want_tensors or (
+                        mode == "True"
+                        and s["allreduce_responses"] != OVERLAP_PASSES):
+                    raise AssertionError(
+                        f"rank {r} overlap={mode}: {s}; expected "
+                        f"{want_tensors} tensors per step (overlap: one "
+                        f"fused response per microbatch)")
+        if rank_out["rel_rms"] > OVERLAP_REL_RMS:
+            raise AssertionError(
+                f"rank {r}: overlap=True vs overlap=False weights, relative "
+                f"RMS {rank_out['rel_rms']!r} (limit {OVERLAP_REL_RMS})")
+        want = ("HOROVOD_DATA_PLANE=nccl", "DistributedOptimizer(overlap=True)")
+        if not all(w in rank_out["refusal"] for w in want):
+            raise AssertionError(f"rank {r}: make_overlapped_train_step on "
+                                 f"the host plane: {rank_out['refusal']!r}")
+        for mode in ("True", "False"):
+            steps = rank_out["modes"][mode]["steps"]
+            print(f"np2 overlap={mode}: rank {r} BERT-large {OVERLAP_PASSES}"
+                  f" x {OVERLAP_BATCH} x {BERT_SEQ} per step, ms/step "
+                  f"{[round(s['ms'], 1) for s in steps]} (in the plane's op "
+                  f"{[round(s['plane_ms'], 1) for s in steps]}), tensors "
+                  f"{[s['allreduce_tensors'] for s in steps]} in responses "
+                  f"{[s['allreduce_responses'] for s in steps]} per step "
+                  f"[{card_line}]", flush=True)
+    return {"seconds": seconds, "rel_rms": [r["rel_rms"] for r in ranks],
+            "refusal": ranks[0]["refusal"]}
+
+
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
     for launches in (fa.LAUNCHES, adasum_kernels.LAUNCHES):
@@ -1884,6 +2260,8 @@ def main() -> int:
             np2_bert_adasum_worker(sys.argv[3])
         elif sys.argv[2:3] == ["np2-stall"]:
             np2_stall_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["np2-overlap"]:
+            np2_overlap_worker(sys.argv[3])
         elif sys.argv[2:3] == ["nccl-np2"]:
             nccl_np2_worker()
         else:
@@ -2030,6 +2408,30 @@ def main() -> int:
     print(f"np2 stall: every rank stopped with the stall text in "
           f"{stall['seconds']:.1f}s (launch included) [{card_line}]",
           flush=True)
+
+    torch.cuda.empty_cache()
+    graphs = [phase_graph(kind, card_line) for kind in ("resnet", "bert")]
+    for g in graphs:
+        same = "the same bits" if not g["differing_tensors"] else \
+            f"within {g['worst_rel_rms']!r} relative RMS"
+        print(f"graph step: {g['kind']} eager {g['eager_ms']:.2f} ms/step, "
+              f"graph {g['graph_ms']:.2f} ms/step, eager/graph "
+              f"{g['eager_over_graph']:.3f}; parameters after {GRAPH_STEPS} "
+              f"steps {same}; kernels captured per step "
+              f"{g['captured_per_step']} "
+              f"(the wrappers count once, at capture; x {g['replays']} "
+              f"replays = {g['launches_in_replays']}; the kernels line "
+              f"below gives the eager main paths' counts); runtime "
+              f"responses in the replays {g['responses_in_replays']} "
+              f"[{card_line}]", flush=True)
+    phase_value_and_grad(card_line)
+    torch.cuda.empty_cache()
+    overlap = phase_np2_overlap(card_line)
+    print(f"np2 overlap: 2 ranks in {overlap['seconds']:.1f}s (launch "
+          f"included); overlap=True within {overlap['rel_rms']} of "
+          f"overlap=False (limit {OVERLAP_REL_RMS}); on the host plane "
+          f"make_overlapped_train_step refused: {overlap['refusal']!r} "
+          f"[{card_line}]", flush=True)
 
     timed = [r for r in rows if "ms" in r]
 

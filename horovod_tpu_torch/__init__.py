@@ -2,9 +2,11 @@
 
 ``import horovod_tpu_torch as hvd`` gives the Horovod surface for torch:
 ``hvd.init()``, the eager collectives (allreduce, broadcast, allgather,
-alltoall, join, barrier), ``hvd.DistributedOptimizer``,
-``hvd.Compression``, and the start-up broadcasts of parameters, optimizer
-state and objects.  The runtime works on the card (``cuda:<local_rank>``)
+alltoall, join, barrier, ``synchronize_many``),
+``hvd.DistributedOptimizer`` (with ``overlap=True``),
+``hvd.distributed_value_and_grad``, ``hvd.make_overlapped_train_step``
+(the whole step as one CUDA graph; ``hvd.wfbp``), ``hvd.Compression``, and
+the start-up broadcasts of parameters, optimizer state and objects.  The runtime works on the card (``cuda:<local_rank>``)
 unless ``hvd.init(device="cpu")`` asks for the CPU.  This package imports
 neither JAX nor ``horovod_tpu``.
 """
@@ -51,8 +53,11 @@ from .ops import (
     poll,
     size_or_one,
     synchronize,
+    synchronize_many,
 )
-from .optimizer import DistributedOptimizer
+from . import wfbp
+from .optimizer import DistributedOptimizer, distributed_value_and_grad
+from .wfbp import make_overlapped_train_step
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -61,9 +66,10 @@ __all__ = [
     "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
     "allgather", "allgather_async", "broadcast", "broadcast_async",
     "broadcast_", "broadcast_async_", "alltoall", "join", "barrier",
-    "poll", "synchronize",
+    "poll", "synchronize", "synchronize_many",
     "broadcast_parameters", "broadcast_optimizer_state",
     "broadcast_object", "allgather_object",
     "Sum", "Average", "Adasum",
     "Compression", "DistributedOptimizer", "HorovodInternalError",
+    "distributed_value_and_grad", "make_overlapped_train_step", "wfbp",
 ]

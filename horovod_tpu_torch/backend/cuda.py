@@ -23,11 +23,20 @@ mixes the CPU and the card across ranks (reference Horovod's "Mismatched
 CPU/GPU device selection"); a response on the CPU on every rank (AdamW's
 0-d ``step``, the object collectives' bytes) takes the host plane's.
 
-The allreduce fuses the entries into one buffer (:func:`fuse`), widening
-floats of 16 bits or fewer to fp32 as ``xla.py:257-270`` does, sums it and
-unfuses it (:func:`unfuse`), so a bf16 sum over ranks adds in fp32 and
-rounds once (the JAX ring rounds at every hop, ``cpu_ring.py:106-112,
-180-194``).
+The device plane's allreduce fuses the entries into one buffer
+(:func:`fuse`), widening floats of 16 bits or fewer to fp32 as
+``xla.py:257-270`` does, sums it and unfuses it (:func:`unfuse`), so a
+bf16 sum over ranks adds in fp32 and rounds once.  The host plane does the
+same for every other dtype (gloo's allreduce, fp32, fp64 and integers
+summed in their own dtype).  A bf16 or fp16 response on the host plane
+instead keeps its dtype on the wire, as the JAX ``RingAllreduce`` does
+(``cpu_ring.py:517-535``): fused narrow, prescaled (widened, scaled,
+rounded back), reduced by a ring over the group's send/recv (a
+reduce-scatter whose every hop adds in fp32 and rounds back once,
+``_widen_add``, then an allgather of the owned chunks, with the JAX
+ring's chunk bounds and hop order), then postscaled the same way; so each
+element moves ``2·(P−1)/P`` times its two bytes, and at np=2 it rounds
+once, as the widened sum does.
 The fused buffer holds exactly the entries' elements: the JAX package pads
 it to a power-of-two bucket to spare XLA recompiles, which neither group
 needs.  The bit-moving collectives (``XlaBroadcast`` :950,
@@ -68,6 +77,8 @@ stats: Dict[str, int] = {f"{kind}_{what}": 0
                          for kind in ("allreduce", "adasum", "broadcast",
                                       "allgather", "alltoall")
                          for what in ("responses", "tensors")}
+#: Bytes the host plane's narrow ring handed to the group's ``send``.
+stats["host_ring_bytes_sent"] = 0
 
 
 def widened(tensor: torch.Tensor) -> torch.Tensor:
@@ -249,11 +260,84 @@ class Allreduce(PlaneOp):
                     self._place(e, torch.empty_like(e.tensor))
                 _reduce_into(e.tensor, e.output, scale)
             return
+        sample = entries[0].tensor
+        if self.plane == PLANE_HOST and sample.is_floating_point() \
+                and sample.element_size() == 2:
+            self._narrow_ring(response, entries, device)
+            return
         fused = fuse(entries, response.prescale_factor).to(self._wire(device))
         # On the NCCL group the NCCL stream waits on this one, and this one
         # on it.
         self.group.allreduce([fused]).wait()
         unfuse(fused.to(device), entries, response.postscale_factor)
+
+    def _narrow_ring(self, response, entries, device) -> None:
+        """The host plane's bf16/fp16 allreduce (module docstring):
+        ``RingAllreduce.execute`` without its codecs and error feedback."""
+        buf = torch.cat([e.tensor.reshape(-1) for e in entries]).to("cpu")
+        buf = scaled_narrow(buf, response.prescale_factor)
+        ring_allreduce(buf, self.topo.rank, self.topo.size, self._exchange)
+        buf = scaled_narrow(buf, response.postscale_factor)
+        unfuse(buf.to(device), entries, 1.0)
+
+    def _exchange(self, send: torch.Tensor, recv: torch.Tensor) -> None:
+        """One ring hop: ``send`` to the next rank and the previous rank's
+        chunk into ``recv``, both posted before either is waited on (as
+        bytes: gloo's send/recv take no bf16)."""
+        rank, size = self.topo.rank, self.topo.size
+        works = []
+        if recv.numel():
+            works.append(self.group.recv([recv.view(torch.uint8)],
+                                         (rank - 1) % size, 0))
+        if send.numel():
+            works.append(self.group.send([send.view(torch.uint8)],
+                                         (rank + 1) % size, 0))
+            stats["host_ring_bytes_sent"] += send.numel() * send.element_size()
+        for work in works:
+            work.wait()
+
+
+def scaled_narrow(buf: torch.Tensor, factor: float) -> torch.Tensor:
+    """``buf · factor`` in fp32, rounded back to ``buf``'s dtype
+    (``cpu_ring.py::_scale_inplace``); ``buf`` itself when the factor is 1."""
+    if factor == 1.0:
+        return buf
+    return (buf.float() * factor).to(buf.dtype)
+
+
+def chunk_bounds(n: int, parts: int) -> List[int]:
+    """The ring's chunk offsets: ``parts`` chunks of ``n`` elements, the
+    first ``n % parts`` one longer (``cpu_ring.py::_chunk_bounds``)."""
+    base, rem = divmod(n, parts)
+    bounds = [0]
+    for c in range(parts):
+        bounds.append(bounds[-1] + base + (1 if c < rem else 0))
+    return bounds
+
+
+def ring_allreduce(buf: torch.Tensor, rank: int, size: int,
+                   exchange) -> None:
+    """Sum ``buf`` (flat, contiguous, on the host) over ``size`` ranks in
+    place, in its own dtype: the JAX ring's reduce-scatter (at hop s rank r
+    sends chunk ``(r − s) mod P`` and adds the incoming chunk
+    ``(r − s − 1) mod P`` into its own, widened and rounded back once),
+    after which rank r owns chunk ``(r + 1) mod P``, then its allgather (at
+    hop s rank r sends chunk ``(r + 1 − s) mod P`` and receives chunk
+    ``(r − s) mod P`` in place).  ``exchange(send, recv)`` sends to rank
+    ``r + 1`` and receives from rank ``r − 1``."""
+    bounds = chunk_bounds(buf.numel(), size)
+    stage = torch.empty(bounds[1] - bounds[0], dtype=buf.dtype)
+
+    def chunk(c: int) -> torch.Tensor:
+        return buf[bounds[c]:bounds[c + 1]]
+
+    for s in range(size - 1):
+        mine = chunk((rank - s - 1) % size)
+        incoming = stage[:mine.numel()]
+        exchange(chunk((rank - s) % size), incoming)
+        mine.copy_((mine.float() + incoming.float()).to(buf.dtype))
+    for s in range(size - 1):
+        exchange(chunk((rank + 1 - s) % size), chunk((rank - s) % size))
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,13 @@ from typing import Optional, Union
 
 import torch
 
+from .common import env as env_mod
 from .common.exceptions import HorovodInternalError
+from .common.logging_util import get_logger
 from .common.topology import ProcessTopology, from_env
 from .core.state import global_state, reset_global_state
+
+log = get_logger("horovod_tpu_torch.basics")
 
 
 def _resolve_device(device: Union[None, str, torch.device],
@@ -46,10 +50,16 @@ def init(device: Union[None, str, torch.device] = None,
     given), background thread up, and at size > 1 the process groups
     joined.  ``device`` defaults to ``cuda:<local_rank>``; an explicit one
     is honoured, which is how several ranks share one card
-    (``device="cuda:0"``)."""
+    (``device="cuda:0"``).  A knob of the JAX runtime whose feature the
+    port lacks raises ``ValueError`` (``common/env.py::check_knobs``)."""
     state = global_state()
     if state.initialized.is_set():
         return
+    tuning = env_mod.check_knobs()
+    if tuning:
+        log.warning("ignoring %s: tuning knobs of the JAX runtime's own "
+                    "machinery, which this port does not have",
+                    ", ".join(f"{n}={env_mod.get_str(n)!r}" for n in tuning))
     topo = topology or from_env()
     state.initialize(_resolve_device(device, topo), topology=topo)
 

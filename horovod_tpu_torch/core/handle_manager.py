@@ -7,7 +7,8 @@ Counterpart of ``horovod_tpu/core/handle_manager.py`` (the reference's
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..common.exceptions import HorovodInternalError
 from .tensor_queue import Status
@@ -60,3 +61,45 @@ class HandleManager:
         if not status.ok:
             raise HorovodInternalError(status.error_message)
         return result
+
+    def wait_many(self, handles: Sequence[int],
+                  timeout: Optional[float] = None) -> List[Any]:
+        """Wait for a batch of handles; their results in handle order
+        (``horovod_tpu/core/handle_manager.py::wait_many``).  ``timeout``
+        bounds the whole batch (one deadline).  On an error status or a
+        timeout every handle of the batch is released before this raises,
+        so a step that failed part-way leaks no event."""
+        events = []
+        with self._lock:
+            for h in handles:
+                event = self._events.get(h)
+                if event is None:
+                    raise ValueError(f"unknown handle {h}")
+                events.append(event)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        timed_out = None
+        for h, event in zip(handles, events):
+            left = None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            if not event.wait(left):
+                timed_out = h
+                break
+        results, first_error = [], None
+        with self._lock:
+            for h in handles:
+                done = self._done.pop(h, None)
+                self._events.pop(h, None)
+                if done is None:        # timed out before completion
+                    results.append(None)
+                    continue
+                status, result = done
+                if not status.ok and first_error is None:
+                    first_error = status.error_message
+                results.append(result)
+        if timed_out is not None:
+            raise TimeoutError(
+                f"collective batch timed out after {timeout}s waiting on "
+                f"handle {timed_out}")
+        if first_error is not None:
+            raise HorovodInternalError(first_error)
+        return results

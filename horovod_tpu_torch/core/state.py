@@ -126,6 +126,10 @@ class HorovodGlobalState:
         self.plane = env_mod.PLANE_HOST
         self.control_group = None
         self.nccl_group = None
+        # The launcher's store, and the groups built on it for callers
+        # outside the background loop (:meth:`own_group`).
+        self.store: Optional[Store] = None
+        self._own_groups: list = []
         # Set by enqueue_join; the JOIN response (or the loop's end) sets
         # and clears it.
         self.join_event: Optional[threading.Event] = None
@@ -199,6 +203,7 @@ class HorovodGlobalState:
                               env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
                               timeout)
         store.set("worker_started", str(topo.rank), b"1")
+        self.store = store
         self.control_group = gloo_group(store.group_store("control", epoch),
                                         topo.rank, topo.size, timeout)
         if self.plane != env_mod.PLANE_NCCL:
@@ -226,10 +231,28 @@ class HorovodGlobalState:
         torch.cuda.synchronize(self.device)
 
     def _destroy_groups(self) -> None:
-        for group in (self.nccl_group, self.control_group):
+        for group in (*self._own_groups, self.nccl_group, self.control_group):
             if group is not None:
                 group.shutdown()
         self.nccl_group = self.control_group = None
+        self._own_groups = []
+
+    def own_group(self, name: str):
+        """At size > 1, a group for collectives that a caller issues itself,
+        outside the background loop (the whole-step graph's average): NCCL
+        for a runtime on the card, gloo on the CPU, rendezvoused through
+        the launcher's store under ``name``, which every rank passes in the
+        same order.  The runtime's own groups cannot serve: the background
+        loop runs its negotiation and ops on them at the same time.  Torn
+        down with the runtime."""
+        timeout = env_mod.get_float(env_mod.HOROVOD_MESH_STARTUP_TIMEOUT,
+                                    env_mod.DEFAULT_MESH_STARTUP_TIMEOUT)
+        # The membership epoch (0 until elastic re-init) scopes the keys.
+        store = self.store.group_store(name, 0)
+        make = nccl_group if self.device.type == "cuda" else gloo_group
+        group = make(store, self.topo.rank, self.topo.size, timeout)
+        self._own_groups.append(group)
+        return group
 
     def _build(self) -> None:
         """``_build_transport`` and ``_register_default_ops``: the groups

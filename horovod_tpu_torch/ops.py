@@ -4,7 +4,8 @@ Counterpart of ``horovod_tpu/frameworks/jax/ops.py`` with the torch surface
 of ``horovod_tpu/frameworks/torch/__init__.py:94-195`` (the reference's
 ``horovod/torch/mpi_ops.py:85-630``): blocking and ``*_async`` allreduce,
 broadcast and allgather, the in-place ``_`` flavors, ``alltoall``,
-``join``, ``barrier``, ``poll`` and ``synchronize``.  Average is a
+``join``, ``barrier``, ``poll``, ``synchronize`` and
+``synchronize_many``.  Average is a
 postscale of 1/size, like the reference (``operations.cc:953-956``);
 Adasum (``backend/adasum.py``) takes the scales as given and floating-point
 tensors only.
@@ -248,3 +249,10 @@ def synchronize(handle: int, timeout: Optional[float] = None) -> torch.Tensor:
     the in-place flavors).  A CUDA result is complete on the card when this
     returns."""
     return _handles.wait(handle, timeout=timeout)
+
+
+def synchronize_many(handles, timeout: Optional[float] = None) -> list:
+    """Wait for a batch of async ops; their results in handle order, under
+    one deadline for the whole batch (``frameworks/jax/ops.py:240``).  On
+    any error or timeout every handle is released before this raises."""
+    return _handles.wait_many(list(handles), timeout=timeout)

@@ -15,8 +15,10 @@ job has a 60 s limit and gloo timeouts of 60 s, so a hang fails fast.
 
 Tolerances against a float64 numpy sum of the same inputs: int32 exact;
 fp32 within ``size · 2^-24 · Σ|x|`` (each of the size-1 additions rounds
-once); bf16 is summed in fp32 and rounded once, so within one bf16 rounding
-(``2^-8 · |sum|``) plus the fp32 bound.  Applied gradients against the
+once); bf16 crosses the host plane's narrow ring, which adds in fp32 and
+rounds once per hop: at np=2 within one bf16 rounding (``2^-8 · |sum|``)
+plus the fp32 bound, and at any size each element exactly the ring's sum
+in the order of its chunk's first sender.  Applied gradients against the
 float64 mean of the ranks' local gradients: rtol 1e-5 (an fp32 sum and a
 scale).
 """
@@ -301,7 +303,7 @@ def payloads(rank):
 exec(PAYLOADS)
 
 _PORT_WORKER = PAYLOADS + '''
-import hashlib, json, sys
+import hashlib, json, os, sys, time
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
@@ -311,6 +313,7 @@ from horovod_tpu_torch.common.exceptions import HorovodInternalError
 from horovod_tpu_torch.core.state import global_state
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.training import cross_entropy_loss, train_step
+from horovod_tpu_torch.transport.store import Store
 
 # The user's own default process group (one rank in each process): the
 # runtime neither refuses it nor tears it down.
@@ -358,9 +361,22 @@ for i in info["hook_order"]:
 hook_opt.step()
 info["hook_grads"] = [p.grad.tolist() for p in ps]
 
+# The coordinator names the first request it took: rank 0's goes out
+# first, and the others enqueue once its background loop has taken it
+# (within a cycle the coordinator reads the ranks in order).
+store = Store.connect(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"],
+                      int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]), 60)
+if rank != 0:
+    store.wait("mismatch", ["taken"], 60)
+mismatch = hvd.allreduce_async(
+    torch.ones(3, dtype=torch.int32 if rank == size - 1 else torch.float32),
+    name="mismatch")
+if rank == 0:
+    while global_state().tensor_queue._pending:
+        time.sleep(0.001)
+    store.set("mismatch", "taken", b"1")
 try:
-    hvd.allreduce(torch.ones(3, dtype=torch.int32 if rank == size - 1
-                             else torch.float32), name="mismatch")
+    hvd.synchronize(mismatch)
     info["mismatch"] = ""
 except HorovodInternalError as e:
     info["mismatch"] = str(e)
@@ -483,15 +499,36 @@ def test_fp32_sum_within_fp32_rounding(job, name):
         assert np.all(np.abs(arrays["sum." + name] - exact) <= bound)
 
 
+def _ring_sum(values, start: int) -> np.ndarray:
+    """The narrow ring's sum of bf16 ``values`` (one array per rank) for a
+    chunk that rank ``start`` sends first: each later rank adds its value
+    in fp32 and rounds back to bf16."""
+    size = len(values)
+    acc = values[start].astype(ml_dtypes.bfloat16)
+    for k in range(1, size):
+        acc = (acc.astype(np.float32) + values[(start + k) % size]).astype(
+            ml_dtypes.bfloat16)
+    return acc.astype(np.float32)
+
+
 @pytest.mark.parametrize("name", _names("bf16"))
 def test_bf16_sum_widened_and_rounded_once(job, name):
+    """Widened in each add and rounded once per hop: once at np=2 (fault
+    C3), and at np=3 every element is the ring's sum in the order of one of
+    the ranks, the same on every rank."""
     exact = _float64_sum(job, name)
     bound = 2.0 ** -8 * np.abs(exact) + len(job) * 2.0 ** -24 * sum(
         np.abs(arrays["in." + name]) for arrays, _ in job)
+    values = [arrays["in." + name] for arrays, _ in job]
+    orders = np.stack([_ring_sum(values, r) for r in range(len(job))])
+    first = job[0][0]["sum." + name]
     for arrays, _ in job:
         got = arrays["sum." + name]
-        assert np.all(np.abs(got - exact) <= bound)
-        # The result is a bf16 value, rounded once from the fp32 sum.
+        assert got.tobytes() == first.tobytes()
+        assert np.all((orders == got[None, :]).any(axis=0))
+        if len(job) == 2:
+            assert np.all(np.abs(got - exact) <= bound)
+        # The result is a bf16 value.
         assert np.array_equal(got, got.astype(ml_dtypes.bfloat16)
                               .astype(np.float32))
 
