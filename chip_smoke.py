@@ -112,6 +112,13 @@ Phases, in order; any failure raises and the exit code is not 0:
     The response cache is on: the start-up broadcasts fill it past its
     1024 entries, so the gradients' first step evicts (their count is
     printed), and rank 1's second step must send no serialized request.
+    The job runs with the launcher's ``--timeline-filename``: both ranks'
+    traces are merged and ``critical_path`` splits each step of each rank
+    into fusion (``LC_FUSE``/``LC_UNFUSE``: the fused buffer, its copies
+    to and from the host and the copy's wait for the gradients), reduce
+    (gloo's sum), dispatch and negotiation wait, printed in ms per step
+    beside the workers' ``phase_stats`` (fuse, collective, unfuse, wait,
+    negotiate) and the host plane's op time.
 13. BERT-large at np=2 with Adasum (``--worker np2-bert-adasum``,
     BASELINE config 4): per-rank seeds, ``hvd.broadcast_parameters`` and
     ``hvd.broadcast_optimizer_state``, then
@@ -166,6 +173,24 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``make_overlapped_train_step`` on the host plane at np=2 raises the
     text that names ``HOROVOD_DATA_PLANE=nccl`` and
     ``DistributedOptimizer(overlap=True)``.
+19. The timeline at np=1: ResNet-50 (b128) and BERT-large (b8 x 512)
+    through the eager hook path in one process, ``TIMELINE_STEPS`` steps
+    with the timeline off, then ``hvd.start_timeline`` and as many on, then
+    ``hvd.stop_timeline``; prints both ms/step and their ratio (no gate on
+    it).  Asserts the trace loads as JSON, has one lane per gradient (161,
+    292), every ``LC_SUBMITTED`` and ``LC_CALLBACK`` begin has its end,
+    every op span carries a cycle, and ``critical_path`` gives one step per
+    tagged cycle, every op's cycle among them.
+20. ``examples/torch_port/pytorch_synthetic_benchmark.py`` at np=2 on the
+    one card (ResNet-50, 32 images per rank, 2 warm-up and 2 timed
+    iterations, the host plane) through the launcher's
+    ``--timeline-filename``, ``--output-filename`` and ``-v``
+    (``--worker example``).  Asserts both rank traces and ``rank.0/``,
+    ``rank.1/`` exist, the merged trace holds both pids, every tensor's op
+    spans carry the same cycle ids on both ranks, and rank 0 printed the
+    example's ``Total img/sec`` line (echoed with its prefix and in its
+    file); prints ``critical_path``'s per-rank attribution over the
+    gradients' cycles and each rank's ``phase_stats``, in ms per step.
 
 The last two lines are the kernels' JSON summary (B8, the three flash
 kernels and the Adasum kernels, whose launches are phase 13's and whose
@@ -175,8 +200,9 @@ over its ranks and steps) and
 
 ``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
 ``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR``, ``--worker
-np2-overlap DIR`` and ``--worker nccl-np2`` are the launched workers of
-phases 11, 12, 13, 14, 18 and 10.
+np2-overlap DIR``, ``--worker nccl-np2`` and ``--worker example SCRIPT
+ARGS...`` are the launched workers of phases 11, 12, 13, 14, 18, 10 and
+20.
 """
 
 from __future__ import annotations
@@ -188,6 +214,7 @@ import json
 import math
 import os
 import re
+import runpy
 import signal
 import subprocess
 import sys
@@ -209,11 +236,13 @@ from horovod_tpu_torch.core import controller as controller_mod
 from horovod_tpu_torch.core.messages import DataType, Response, ResponseType
 from horovod_tpu_torch.core.state import global_state
 from horovod_tpu_torch.core.tensor_queue import TensorTableEntry
+from horovod_tpu_torch.core.timeline import phase_stats
 from horovod_tpu_torch.kernels import adasum as adasum_kernels
 from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.training import cross_entropy_loss, train_step
+from horovod_tpu_torch.tools import critical_path, trace_merge
 
 BATCH = 128
 IMAGE = 224
@@ -394,6 +423,18 @@ OVERLAP_BATCH = 2
 OVERLAP_PASSES = 2
 OVERLAP_STEPS = 2
 OVERLAP_REL_RMS = 1e-6
+# The timeline at np=1: steps timed with it off, then on, in one process.
+TIMELINE_STEPS = 5
+# The np=2 example through the launcher's new flags: ResNet-50, 32 images
+# per rank, 2 warm-up and 2 timed iterations of 3 batches, both ranks on
+# the one card.
+EXAMPLE = REPO / "examples" / "torch_port" / "pytorch_synthetic_benchmark.py"
+EXAMPLE_ARGS = ("--device", "cuda:0", "--batch-size", "32",
+                "--num-warmup-batches", "2", "--num-iters", "2")
+EXAMPLE_STEPS = 2 + 2 * 3
+# The op spans of the trace, and critical_path's phases chip_smoke prints.
+OP_SPANS = ("ALLREDUCE", "ADASUM", "BROADCAST", "ALLGATHER", "ALLTOALL")
+TRACE_PHASES = ("fusion", "reduce", "dispatch", "negotiation_wait")
 
 
 def card() -> str:
@@ -1453,6 +1494,8 @@ def np2_bert_worker(out_dir: str) -> None:
         counts = dict(cuda_backend.stats)
         op_seconds[0] = 0.0
         negotiation = negotiation_snapshot(probe)
+        phases = phase_stats.snapshot()
+        first_cycle = global_state().cycle_count
         t0 = time.perf_counter()
         loss = train_step(model, opt, batch)
         torch.cuda.synchronize()
@@ -1460,6 +1503,10 @@ def np2_bert_worker(out_dir: str) -> None:
             **negotiation_delta(negotiation, probe),
             "loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
             "plane_ms": 1e3 * op_seconds[0],
+            # The trace's cycles of this step, (first, last], and the
+            # runtime's phase times in it.
+            "cycles": (first_cycle, global_state().cycle_count),
+            "phases_ms": phase_delta(phases),
             **{k: fa.LAUNCHES[k] - launches[k] for k in FLASH_KERNELS},
             **{k: cuda_backend.stats[k] - counts[k] for k in counts},
             "hash": _sha_all(p for _, p in params),
@@ -1490,13 +1537,17 @@ def phase_np2_bert(card_line: str) -> dict:
     (REPO / "_runs").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="np2_bert.",
                                      dir=REPO / "_runs") as out_dir:
+        trace = Path(out_dir) / "tl.json"
         t0 = time.perf_counter()
-        code, out, err = launch_job(2, ["np2-bert", out_dir], LAUNCH_TIMEOUT)
+        code, out, err = launch_job(
+            2, ["np2-bert", out_dir], LAUNCH_TIMEOUT,
+            launcher_args=["--timeline-filename", str(trace)])
         seconds = time.perf_counter() - t0
         if code != 0:
             raise AssertionError(f"np=2 BERT-large job failed with exit "
                                  f"{code}:\n{out}\n{err}")
         ranks = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in range(2)]
+        traces = load_rank_traces(trace, 2)
     r0, r1 = ranks
     # The start-up broadcasts: rank 0's weights, state and hyperparameters
     # everywhere; every tensor differed across the ranks before (the
@@ -1613,7 +1664,26 @@ def phase_np2_bert(card_line: str) -> dict:
               f"({rk['broadcast_responses']}), peak "
               f"{rk['peak_mem_gb']:.1f} GB, worker {rk['seconds']:.1f}s "
               f"[{card_line}]", flush=True)
-    return {"seconds": seconds, "worst_grad_rel_rms": worst,
+    split = trace_split(traces, [rk["steps"] for rk in ranks])
+    for r, rk in enumerate(ranks):
+        per = rk["steps"]
+        op_ms = [round(s["plane_ms"], 1) for s in per]
+        stats = {p: [round(s["phases_ms"].get(p, 0.0), 1) for s in per]
+                 for p in ("fuse", "collective", "unfuse", "wait",
+                           "negotiate")}
+        print(f"np2 BERT trace: rank {r} ms per step from critical_path "
+              f"(union of the LC_* spans per phase): "
+              + ", ".join(f"{p} {split[r][p]}" for p in TRACE_PHASES)
+              + f"; the host plane's op {op_ms}; phase_stats ms per step: "
+              + ", ".join(f"{p} {v}" for p, v in stats.items())
+              + "; fusion is LC_FUSE + LC_UNFUSE (the fused buffer, its "
+              "copies to and from the host, and the copy's wait for the "
+              "gradients), reduce is gloo's sum (one LC_WIRE_REDUCE_SCATTER"
+              "); with the response cache on, negotiation_wait counts only "
+              "the steps whose tensors went through rank 0's table "
+              f"(mask-path rounds emit no table spans) [{card_line}]",
+              flush=True)
+    return {"seconds": seconds, "worst_grad_rel_rms": worst, "split": split,
             "control_rel_rms": control, "evictions": evictions,
             "ms": [[s["ms"] for s in rk["steps"]] for rk in ranks],
             "plane_ms": [[s["plane_ms"] for s in rk["steps"]]
@@ -2237,6 +2307,249 @@ def phase_np2_overlap(card_line: str) -> dict:
             "refusal": ranks[0]["refusal"]}
 
 
+# ---------------------------------------------------------------------------
+# the timeline: phases 19 and 20, and the trace of phase 12
+# ---------------------------------------------------------------------------
+
+
+def phase_delta(before: dict) -> dict:
+    """ms per phase of ``phase_stats`` since the snapshot ``before``."""
+    after = phase_stats.snapshot()
+    return {k: v["total_ms"] - before.get(k, {}).get("total_ms", 0.0)
+            for k, v in after.items()}
+
+
+def load_rank_traces(path: Path, size: int) -> list:
+    """Each rank's trace (rank 0 at ``path``, rank r at ``path.rank<r>``),
+    which must load as JSON: the writer closed every file."""
+    traces = []
+    for r in range(size):
+        rank_path = Path(f"{path}.rank{r}" if r else path)
+        traces.append(json.loads(rank_path.read_text()))
+    return traces
+
+
+def trace_lanes(events: list) -> dict:
+    """Per lane (tensor name), its B/E/i records as ``(name, ph, args)`` in
+    write order, each E named after the span it closes.  Raises on an E
+    with no open span and on a span left open."""
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("name") == "thread_name"}
+    stacks = {tid: [] for tid in names}
+    lanes = {name: [] for name in names.values()}
+    for e in events:
+        tid = e.get("tid")
+        if tid not in names or e["ph"] == "M":
+            continue
+        lane, stack = lanes[names[tid]], stacks[tid]
+        if e["ph"] == "B":
+            stack.append(e["name"])
+            lane.append((e["name"], "B", e.get("args") or {}))
+        elif e["ph"] == "E":
+            if not stack:
+                raise AssertionError(f"lane {names[tid]}: an E record with "
+                                     "no open span")
+            lane.append((stack.pop(), "E", {}))
+        else:
+            lane.append((e["name"], e["ph"], e.get("args") or {}))
+    left = {names[tid]: stack for tid, stack in stacks.items() if stack}
+    if left:
+        raise AssertionError(f"{len(left)} lanes with spans left open, e.g. "
+                             f"{next(iter(left.items()))}")
+    return lanes
+
+
+def op_cycles(lanes: dict) -> dict:
+    """Per lane, the cycle of each of its op spans; each must carry one."""
+    out = {}
+    for lane, records in lanes.items():
+        out[lane] = []
+        for name, ph, args in records:
+            if ph == "B" and name in OP_SPANS:
+                if not isinstance(args.get("cycle"), int):
+                    raise AssertionError(f"lane {lane}: op span {name} "
+                                         f"without a cycle: {args}")
+                out[lane].append(args["cycle"])
+    return out
+
+
+def check_trace(events: list, n_lanes: int) -> dict:
+    """Phase 19's gates on one rank's trace: ``n_lanes`` lanes, every
+    ``LC_SUBMITTED`` and ``LC_CALLBACK`` closed, every op span tagged with
+    a cycle, and critical_path giving one step per tagged cycle, every op's
+    among them.  Returns the counts and critical_path's report."""
+    lanes = trace_lanes(events)
+    if len(lanes) != n_lanes:
+        raise AssertionError(f"{len(lanes)} lanes in the trace, expected "
+                             f"{n_lanes} (one per gradient)")
+    for lane, records in lanes.items():
+        for stage in ("LC_SUBMITTED", "LC_CALLBACK"):
+            opened = sum(1 for n, ph, _ in records if n == stage and ph == "B")
+            closed = sum(1 for n, ph, _ in records if n == stage and ph == "E")
+            if opened == 0 or opened != closed:
+                raise AssertionError(f"lane {lane}: {opened} {stage} begins, "
+                                     f"{closed} ends")
+    ops = op_cycles(lanes)
+    tagged = {e["args"]["cycle"] for e in events
+              if e.get("ph") == "B" and "cycle" in (e.get("args") or {})}
+    doc = critical_path.analyze(events)
+    steps = [s["cycle"] for s in doc["steps"]]
+    op_set = {c for cycles in ops.values() for c in cycles}
+    if steps != sorted(tagged) or not op_set <= set(steps):
+        raise AssertionError(f"critical_path: steps {steps[:20]}... for "
+                             f"{len(tagged)} tagged cycles, op cycles "
+                             f"{sorted(op_set)[:20]}...")
+    return {"lanes": len(lanes), "events": len(events),
+            "op_spans": sum(len(c) for c in ops.values()),
+            "op_cycles": len(op_set), "steps": len(steps),
+            "coverage": doc["coverage"], "report": doc}
+
+
+def trace_split(traces: list, steps_by_rank: list) -> list:
+    """critical_path over the merged trace, per rank: ms of each of
+    ``TRACE_PHASES`` in each of the rank's steps, a step being the cycles
+    ``(first, last]`` its worker recorded."""
+    doc = critical_path.analyze(trace_merge.merge(
+        [list(t) for t in traces], warn=lambda msg: print(msg, flush=True)))
+    out = []
+    for rank, steps in enumerate(steps_by_rank):
+        per = {p: [] for p in TRACE_PHASES}
+        for step in steps:
+            first, last = step["cycles"]
+            for p in TRACE_PHASES:
+                per[p].append(round(sum(
+                    s["phases_us"].get(str(rank), {}).get(p, 0.0)
+                    for s in doc["steps"] if first < s["cycle"] <= last)
+                    / 1e3, 1))
+        out.append(per)
+    return out
+
+
+def phase_timeline_np1(card_line: str) -> list:
+    """Phase 19: ResNet-50 b128 and BERT-large b8 x 512 through the eager
+    hook path, ``TIMELINE_STEPS`` steps with the timeline off, then
+    ``hvd.start_timeline`` and as many on, then ``hvd.stop_timeline``, in
+    one process; the trace's gates (``check_trace``), and both times."""
+    hvd.init()
+    dev = hvd.device()
+    results = []
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="timeline.",
+                                     dir=REPO / "_runs") as out_dir:
+        for kind, n_params in (("resnet", NP2_PARAMS), ("bert", BERT_PARAMS)):
+            model, inner = graph_setup(kind, dev)
+            opt = hvd.DistributedOptimizer(
+                inner, named_parameters=list(model.named_parameters()))
+            batch = graph_batches(kind, dev)[0]
+
+            def step():
+                train_step(model, opt, batch)
+
+            for _ in range(WARMUP_STEPS):
+                step()
+            off_ms = timed_steps(step, TIMELINE_STEPS)
+            path = Path(out_dir) / f"{kind}.json"
+            responses = cuda_backend.stats["allreduce_responses"]
+            hvd.start_timeline(str(path))
+            on_ms = timed_steps(step, TIMELINE_STEPS)
+            # The finalizer closes the last LC_CALLBACK spans after the
+            # handles it releases: let it finish before the file closes.
+            time.sleep(0.2)
+            hvd.stop_timeline()
+            responses = cuda_backend.stats["allreduce_responses"] - responses
+            check = check_trace(json.loads(path.read_text()), n_params)
+            if check["op_spans"] != n_params * TIMELINE_STEPS:
+                raise AssertionError(f"{kind}: {check['op_spans']} op spans, "
+                                     f"expected {n_params} x "
+                                     f"{TIMELINE_STEPS}")
+            report = check.pop("report")
+            result = {"kind": kind, "off_ms": off_ms, "on_ms": on_ms,
+                      "on_over_off": on_ms / off_ms,
+                      "trace_bytes": path.stat().st_size,
+                      "responses": responses, **check}
+            print(f"timeline np=1: {json.dumps(result)} [{card_line}]",
+                  flush=True)
+            print(critical_path.render_text(report, top=3), flush=True)
+            results.append(result)
+            del model, inner, opt, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    hvd.shutdown()
+    return results
+
+
+def example_worker(script: str, args: list) -> None:
+    """One rank of phase 20: the example script as its own ``__main__``,
+    then this rank's ``phase_stats``."""
+    sys.argv = [script, *args]
+    runpy.run_path(script, run_name="__main__")
+    print("PHASE_STATS", json.dumps(phase_stats.snapshot()), flush=True)
+
+
+def phase_example_np2(card_line: str) -> dict:
+    """Phase 20: ``examples/torch_port/pytorch_synthetic_benchmark.py`` at
+    np=2 on the one card through the launcher's ``--timeline-filename``,
+    ``--output-filename`` and ``-v``, on the host plane."""
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_example.",
+                                     dir=REPO / "_runs") as out_dir:
+        trace, logs = Path(out_dir) / "tl.json", Path(out_dir) / "logs"
+        t0 = time.perf_counter()
+        code, out, err = launch_job(
+            2, ["example", str(EXAMPLE), *EXAMPLE_ARGS], LAUNCH_TIMEOUT,
+            launcher_args=["--timeline-filename", str(trace),
+                           "--output-filename", str(logs), "-v"])
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 example failed with exit {code}:\n"
+                                 f"{out}\n{err}")
+        for r in range(2):
+            for name in ("stdout", "stderr"):
+                if not (logs / f"rank.{r}" / name).is_file():
+                    raise AssertionError(f"--output-filename: no "
+                                         f"rank.{r}/{name} under {logs}")
+        rank0_log = (logs / "rank.0" / "stdout").read_text()
+        traces = load_rank_traces(trace, 2)
+    total = [line for line in out.splitlines()
+             if line.startswith("[0]<stdout>: Total img/sec on 2 rank(s): ")]
+    if not total or total[0].split(": ", 1)[1] not in rank0_log:
+        raise AssertionError(f"no Total img/sec line from rank 0 (or not in "
+                             f"its --output-filename file):\n{out}")
+    merged = trace_merge.merge([list(t) for t in traces],
+                               warn=lambda msg: print(msg, flush=True))
+    pids = {e["pid"] for e in merged if "pid" in e}
+    if pids != {0, 1}:
+        raise AssertionError(f"merged trace pids {pids}, expected {{0, 1}}")
+    cycles = [op_cycles(trace_lanes(t)) for t in traces]
+    if cycles[0] != cycles[1]:
+        differ = [k for k in set(cycles[0]) | set(cycles[1])
+                  if cycles[0].get(k) != cycles[1].get(k)]
+        raise AssertionError(f"op cycles differ across ranks for "
+                             f"{len(differ)} tensors, e.g. {differ[:3]}")
+    grad_cycles = {c for lane, cs in cycles[0].items()
+                   if lane.startswith("grad.") for c in cs}
+    doc = critical_path.analyze(merged)
+    per_step = {r: {p: round(sum(
+        s["phases_us"].get(str(r), {}).get(p, 0.0) for s in doc["steps"]
+        if s["cycle"] in grad_cycles) / 1e3 / EXAMPLE_STEPS, 2)
+        for p in TRACE_PHASES} for r in range(2)}
+    stats = {}
+    for line in out.splitlines():
+        m = re.match(r"\[(\d)\]<stdout>: PHASE_STATS (.*)", line)
+        if m:
+            stats[int(m.group(1))] = json.loads(m.group(2))
+    if set(stats) != {0, 1}:
+        raise AssertionError(f"phase_stats from ranks {sorted(stats)}")
+    result = {"seconds": seconds, "total": total[0].split(": ", 1)[1],
+              "tensors": len(cycles[0]), "gradient_cycles": len(grad_cycles),
+              "ms_per_step": per_step,
+              "phase_stats_ms_per_step": {
+                  r: {k: round(v["total_ms"] / EXAMPLE_STEPS, 2)
+                      for k, v in stats[r].items()} for r in range(2)}}
+    print(f"np2 example: {json.dumps(result)} [{card_line}]", flush=True)
+    return result
+
+
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
     for launches in (fa.LAUNCHES, adasum_kernels.LAUNCHES):
@@ -2264,6 +2577,8 @@ def main() -> int:
             np2_overlap_worker(sys.argv[3])
         elif sys.argv[2:3] == ["nccl-np2"]:
             nccl_np2_worker()
+        elif sys.argv[2:3] == ["example"]:
+            example_worker(sys.argv[3], sys.argv[4:])
         else:
             raise SystemExit(f"unknown worker {sys.argv[2:]}")
         return 0
@@ -2432,6 +2747,22 @@ def main() -> int:
           f"overlap=False (limit {OVERLAP_REL_RMS}); on the host plane "
           f"make_overlapped_train_step refused: {overlap['refusal']!r} "
           f"[{card_line}]", flush=True)
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    timelines = phase_timeline_np1(card_line)
+    for t in timelines:
+        print(f"timeline np=1: {t['kind']} off {t['off_ms']:.2f} ms/step, on "
+              f"{t['on_ms']:.2f} ms/step, on/off {t['on_over_off']:.3f}; "
+              f"{t['lanes']} lanes, {t['op_spans']} op spans in "
+              f"{t['op_cycles']} cycles, critical_path {t['steps']} steps, "
+              f"{t['trace_bytes']} bytes [{card_line}]", flush=True)
+    torch.cuda.empty_cache()
+    example = phase_example_np2(card_line)
+    print(f"np2 example: {example['total']} ({example['seconds']:.1f}s with "
+          f"the launch); critical_path ms per step over the gradients' "
+          f"cycles {example['ms_per_step']}; phase_stats ms per step "
+          f"{example['phase_stats_ms_per_step']} [{card_line}]", flush=True)
 
     timed = [r for r in rows if "ms" in r]
 

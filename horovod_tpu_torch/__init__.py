@@ -6,8 +6,11 @@ alltoall, join, barrier, ``synchronize_many``),
 ``hvd.DistributedOptimizer`` (with ``overlap=True``),
 ``hvd.distributed_value_and_grad``, ``hvd.make_overlapped_train_step``
 (the whole step as one CUDA graph; ``hvd.wfbp``), ``hvd.Compression``, and
-the start-up broadcasts of parameters, optimizer state and objects.  The runtime works on the card (``cuda:<local_rank>``)
-unless ``hvd.init(device="cpu")`` asks for the CPU.  This package imports
+the start-up broadcasts of parameters, optimizer state and objects, and
+``hvd.start_timeline``/``stop_timeline`` (per-rank Chrome traces; the
+tools in ``horovod_tpu_torch.tools`` merge and read them).  The runtime
+works on the card (``cuda:<local_rank>``) unless
+``hvd.init(device="cpu")`` asks for the CPU.  This package imports
 neither JAX nor ``horovod_tpu``.
 """
 
@@ -23,6 +26,8 @@ from .basics import (
     rank,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
 )
 from .common.exceptions import HorovodInternalError
 from .compression import Compression
@@ -62,7 +67,7 @@ from .wfbp import make_overlapped_train_step
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
-    "size_or_one", "initialized",
+    "size_or_one", "initialized", "start_timeline", "stop_timeline",
     "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
     "allgather", "allgather_async", "broadcast", "broadcast_async",
     "broadcast_", "broadcast_async_", "alltoall", "join", "barrier",

@@ -46,6 +46,15 @@ widest rank's (ragged first dimensions), the alltoall runs
 ``alltoall_base`` with the response's split column.  Plain torch ops and
 group calls: the JAX package leaves this to XLA, not to Pallas.
 
+With a timeline active (``core/timeline.py``), the host plane's allreduce
+emits the JAX ring's lifecycle spans on each member tensor's lane
+(``LC_FUSE``, ``LC_WIRE_REDUCE_SCATTER``, ``LC_WIRE_ALLGATHER``,
+``LC_UNFUSE``; ``LC_RS_STEP``/``LC_AG_STEP`` per hop on the first lane),
+except that gloo's fp32, fp64 and integer sum is one opaque call: one
+``LC_WIRE_REDUCE_SCATTER`` holds it, and no allgather or hop span
+follows.  The other ops, and every op on the device plane and at size 1,
+emit no lifecycle spans of their own.
+
 CUDA tensors run on the op's own stream, after waiting on each entry's ready
 event (recorded on the caller's stream at enqueue; autograd may produce a
 gradient on another stream than this one).  The op records one done event
@@ -57,7 +66,8 @@ CPU tensors take the same steps at once, with no stream and no copies.
 from __future__ import annotations
 
 import datetime
-from typing import Dict, List
+import time
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -65,6 +75,7 @@ import torch.distributed as dist
 from ..common.env import HOROVOD_DATA_PLANE, PLANE_HOST, PLANE_NCCL
 from ..common.exceptions import HorovodInternalError
 from ..common.topology import ProcessTopology
+from ..core import timeline as timeline_mod
 from ..core.messages import Response
 from ..core.operation_manager import CollectiveOp
 from ..core.tensor_queue import Status, TensorTableEntry
@@ -260,25 +271,60 @@ class Allreduce(PlaneOp):
                     self._place(e, torch.empty_like(e.tensor))
                 _reduce_into(e.tensor, e.output, scale)
             return
-        sample = entries[0].tensor
-        if self.plane == PLANE_HOST and sample.is_floating_point() \
-                and sample.element_size() == 2:
-            self._narrow_ring(response, entries, device)
+        if self.plane == PLANE_HOST:
+            sample = entries[0].tensor
+            if sample.is_floating_point() and sample.element_size() == 2:
+                self._narrow_ring(response, entries, device)
+            else:
+                self._host_sum(response, entries, device)
             return
-        fused = fuse(entries, response.prescale_factor).to(self._wire(device))
-        # On the NCCL group the NCCL stream waits on this one, and this one
-        # on it.
+        fused = fuse(entries, response.prescale_factor)
+        # The NCCL stream waits on this one, and this one on it.
         self.group.allreduce([fused]).wait()
+        unfuse(fused, entries, response.postscale_factor)
+
+    def _host_sum(self, response, entries, device) -> None:
+        """The host plane's fp32, fp64 and integer allreduce: fuse and copy
+        to the host (the copy waits on the op's stream, so the gradients'
+        ready events), gloo's sum, copy back and unfuse.  The spans are the
+        JAX ring's (``cpu_ring.py``), with one difference: gloo's allreduce
+        is one opaque call, so one ``LC_WIRE_REDUCE_SCATTER`` holds its
+        whole exchange, and no ``LC_WIRE_ALLGATHER`` or per-hop span
+        follows.  ``phase_stats`` gets ``fuse``, ``collective`` and
+        ``unfuse`` (``horovod_tpu/backend/xla.py:591-610``)."""
+        lanes = timeline_mod.lifecycle_lanes(entries)
+        phases = timeline_mod.phase_stats
+        t0 = time.monotonic()
+        timeline_mod.lifecycle_span(lanes, "LC_FUSE", True)
+        fused = fuse(entries, response.prescale_factor).to("cpu")
+        timeline_mod.lifecycle_span(lanes, "LC_FUSE", False)
+        t1 = time.monotonic()
+        phases.add("fuse", t1 - t0)
+        timeline_mod.lifecycle_span(lanes, "LC_WIRE_REDUCE_SCATTER", True)
+        self.group.allreduce([fused]).wait()
+        timeline_mod.lifecycle_span(lanes, "LC_WIRE_REDUCE_SCATTER", False)
+        t2 = time.monotonic()
+        phases.add("collective", t2 - t1)
+        timeline_mod.lifecycle_span(lanes, "LC_UNFUSE", True)
         unfuse(fused.to(device), entries, response.postscale_factor)
+        timeline_mod.lifecycle_span(lanes, "LC_UNFUSE", False)
+        phases.add("unfuse", time.monotonic() - t2)
 
     def _narrow_ring(self, response, entries, device) -> None:
         """The host plane's bf16/fp16 allreduce (module docstring):
-        ``RingAllreduce.execute`` without its codecs and error feedback."""
+        ``RingAllreduce.execute`` without its codecs and error feedback,
+        with its lifecycle spans (``cpu_ring.py:533-600``)."""
+        lanes = timeline_mod.lifecycle_lanes(entries)
+        timeline_mod.lifecycle_span(lanes, "LC_FUSE", True)
         buf = torch.cat([e.tensor.reshape(-1) for e in entries]).to("cpu")
+        timeline_mod.lifecycle_span(lanes, "LC_FUSE", False)
         buf = scaled_narrow(buf, response.prescale_factor)
-        ring_allreduce(buf, self.topo.rank, self.topo.size, self._exchange)
+        ring_allreduce(buf, self.topo.rank, self.topo.size, self._exchange,
+                       lanes)
         buf = scaled_narrow(buf, response.postscale_factor)
+        timeline_mod.lifecycle_span(lanes, "LC_UNFUSE", True)
         unfuse(buf.to(device), entries, 1.0)
+        timeline_mod.lifecycle_span(lanes, "LC_UNFUSE", False)
 
     def _exchange(self, send: torch.Tensor, recv: torch.Tensor) -> None:
         """One ring hop: ``send`` to the next rank and the previous rank's
@@ -316,7 +362,7 @@ def chunk_bounds(n: int, parts: int) -> List[int]:
 
 
 def ring_allreduce(buf: torch.Tensor, rank: int, size: int,
-                   exchange) -> None:
+                   exchange, lanes: Sequence[str] = ()) -> None:
     """Sum ``buf`` (flat, contiguous, on the host) over ``size`` ranks in
     place, in its own dtype: the JAX ring's reduce-scatter (at hop s rank r
     sends chunk ``(r − s) mod P`` and adds the incoming chunk
@@ -324,20 +370,33 @@ def ring_allreduce(buf: torch.Tensor, rank: int, size: int,
     after which rank r owns chunk ``(r + 1) mod P``, then its allgather (at
     hop s rank r sends chunk ``(r + 1 − s) mod P`` and receives chunk
     ``(r − s) mod P`` in place).  ``exchange(send, recv)`` sends to rank
-    ``r + 1`` and receives from rank ``r − 1``."""
+    ``r + 1`` and receives from rank ``r − 1``.  ``lanes`` are the fused
+    tensors' timeline lanes: each phase's ``LC_WIRE_*`` span on every one,
+    each hop's ``LC_RS_STEP``/``LC_AG_STEP`` on the first only
+    (``cpu_ring.py:413-451``)."""
     bounds = chunk_bounds(buf.numel(), size)
     stage = torch.empty(bounds[1] - bounds[0], dtype=buf.dtype)
+    span = timeline_mod.lifecycle_span
+    step_lane = lanes[:1]
 
     def chunk(c: int) -> torch.Tensor:
         return buf[bounds[c]:bounds[c + 1]]
 
+    span(lanes, "LC_WIRE_REDUCE_SCATTER", True)
     for s in range(size - 1):
+        span(step_lane, "LC_RS_STEP", True)
         mine = chunk((rank - s - 1) % size)
         incoming = stage[:mine.numel()]
         exchange(chunk((rank - s) % size), incoming)
         mine.copy_((mine.float() + incoming.float()).to(buf.dtype))
+        span(step_lane, "LC_RS_STEP", False)
+    span(lanes, "LC_WIRE_REDUCE_SCATTER", False)
+    span(lanes, "LC_WIRE_ALLGATHER", True)
     for s in range(size - 1):
+        span(step_lane, "LC_AG_STEP", True)
         exchange(chunk((rank + 1 - s) % size), chunk((rank - s) % size))
+        span(step_lane, "LC_AG_STEP", False)
+    span(lanes, "LC_WIRE_ALLGATHER", False)
 
 
 # ---------------------------------------------------------------------------

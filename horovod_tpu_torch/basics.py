@@ -110,6 +110,22 @@ def is_homogeneous() -> bool:
     return _topo().is_homogeneous
 
 
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Start a timeline at run time (reference ``operations.cc:780-806``),
+    as ``HOROVOD_TIMELINE`` does at init: every rank writes its own trace
+    (``pid = rank``; rank 0 at ``file_path``, rank r at
+    ``file_path.rank<r>``), the negotiation lanes on rank 0's.  A running
+    timeline is closed first.  Merge the files with
+    ``python -m horovod_tpu_torch.tools.trace_merge`` and read them with
+    ``python -m horovod_tpu_torch.tools.critical_path``."""
+    global_state().start_timeline(file_path, mark_cycles)
+
+
+def stop_timeline() -> None:
+    """Close this rank's trace; nothing when none is running."""
+    global_state().stop_timeline()
+
+
 def device() -> torch.device:
     """The device this rank's runtime works on."""
     _topo()

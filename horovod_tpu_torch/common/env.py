@@ -67,14 +67,18 @@ HOROVOD_FLIGHT_RECORDER_EVENTS = "HOROVOD_FLIGHT_RECORDER_EVENTS"
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIMESTAMP = "HOROVOD_LOG_HIDE_TIMESTAMP"
 
-# -- knobs of the JAX runtime that this port does not act on.  A job that
-# sets one of the first group gets an error at ``hvd.init()`` naming the
-# slice that brings its feature (ROADMAP.md A2, A6, A7, A9), instead of a
-# run without it; the second group only tunes machinery the port does not
-# have, and gets one warning. --
+# -- the timeline (core/timeline.py): the trace's path (rank r writes
+# <path>.rank<r>), a CYCLE mark per cycle, and the per-tensor LC_* spans
+# (default on) --
 HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
 HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
 HOROVOD_TIMELINE_LIFECYCLE = "HOROVOD_TIMELINE_LIFECYCLE"
+
+# -- knobs of the JAX runtime that this port does not act on.  A job that
+# sets one of the first group gets an error at ``hvd.init()`` naming the
+# slice that brings its feature (ROADMAP.md A6, A7, A9), instead of a run
+# without it; the second group only tunes machinery the port does not
+# have, and gets one warning. --
 HOROVOD_TIMELINE_CONTROL_PLANE = "HOROVOD_TIMELINE_CONTROL_PLANE"
 HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
 HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
@@ -166,7 +170,8 @@ def _forced_on(name: str) -> bool:
     return get_str(name).strip().lower() in ("1", "true", "yes", "on")
 
 
-_TIMELINE = "ROADMAP A2 (the timeline)"
+_CONTROL_SPANS = ("ROADMAP A6 (elastic, whose rendezvous server and "
+                  "coordinator emit the RV_*/DRV_* spans)")
 _TUNING = "ROADMAP A7 (autotune and the metrics export)"
 _CROSS_HOST = "ROADMAP A9 (the cross-host transport)"
 
@@ -178,10 +183,7 @@ _CROSS_HOST = "ROADMAP A9 (the cross-host transport)"
 #: ``HOROVOD_WIRE_COMPRESSION`` when it names a codec; the fan-in when
 #: forced on; the topology when it asks for the tree.
 UNSUPPORTED_KNOBS = (
-    (HOROVOD_TIMELINE, _given, _TIMELINE),
-    (HOROVOD_TIMELINE_MARK_CYCLES, _on, _TIMELINE),
-    (HOROVOD_TIMELINE_LIFECYCLE, _on, _TIMELINE),
-    (HOROVOD_TIMELINE_CONTROL_PLANE, _on, _TIMELINE),
+    (HOROVOD_TIMELINE_CONTROL_PLANE, _on, _CONTROL_SPANS),
     (HOROVOD_AUTOTUNE, _on, _TUNING),
     (HOROVOD_AUTOTUNE_LOG, _given, _TUNING),
     (HOROVOD_AUTOTUNE_CODEC, _on, _TUNING),

@@ -208,6 +208,9 @@ class Controller:
         self.stall_warning_secs = stall_warning_secs
         self.stall_shutdown_secs = stall_shutdown_secs
         self._message_table: Dict[str, _TableEntry] = {}
+        # Rank 0's timeline (core/timeline.py): a NEGOTIATE span per table
+        # entry, with each rank's ready tick.
+        self.timeline = None
         self._tally = itertools.count()
         self._joined_ranks: Set[int] = set()
         # An allgather's bytes for the fusion threshold, by tensor name:
@@ -640,12 +643,18 @@ class Controller:
         if entry is None:
             entry = self._message_table[req.tensor_name] = _TableEntry(
                 first_seen=next(self._tally), since=time.monotonic())
+            if self.timeline is not None:
+                self.timeline.negotiate_start(req.tensor_name,
+                                              req.request_type.name)
         if req.request_rank in entry.ranks:
             log.warning("rank %d re-submitted tensor %s before completion",
                         req.request_rank, req.tensor_name)
             return False
         entry.ranks.add(req.request_rank)
         entry.requests.append(req)
+        if self.timeline is not None:
+            self.timeline.negotiate_rank_ready(req.tensor_name,
+                                               req.request_rank)
         active = self.topo.size - len(self._joined_ranks)
         if entry.majority_seen is None and 2 * len(entry.ranks) >= active:
             entry.majority_seen = time.monotonic()
@@ -670,6 +679,8 @@ class Controller:
                                 tensor_names=[JOIN_TENSOR_NAME])
             return None
         entry = self._message_table.pop(name)
+        if self.timeline is not None:
+            self.timeline.negotiate_end(name)
         reqs = entry.requests
         first = reqs[0]
         op = first.request_type

@@ -62,6 +62,7 @@ from ..common.topology import ProcessTopology, from_env
 from ..transport.control import ControlPlane, gloo_group
 from ..transport.store import Store
 from . import flight_recorder
+from . import timeline as timeline_mod
 from .controller import BARRIER_TENSOR_NAME, JOIN_TENSOR_NAME, Controller
 from .messages import DataType, Request, RequestType, Response, ResponseType
 from .operation_manager import OperationManager
@@ -133,6 +134,8 @@ class HorovodGlobalState:
         # Set by enqueue_join; the JOIN response (or the loop's end) sets
         # and clears it.
         self.join_event: Optional[threading.Event] = None
+        # This rank's trace (HOROVOD_TIMELINE or hvd.start_timeline).
+        self.timeline: Optional[timeline_mod.Timeline] = None
 
     # ------------------------------------------------------------------
 
@@ -230,6 +233,27 @@ class HorovodGlobalState:
         self.nccl_group.allreduce([probe]).wait()
         torch.cuda.synchronize(self.device)
 
+    def start_timeline(self, path: str, mark_cycles: bool = False) -> None:
+        """Every rank writes its own trace (``pid = rank``; rank 0 at
+        ``path``, rank r at ``path.rank<r>``); the negotiation lanes exist
+        on rank 0's only, where the message table lives (reference
+        ``operations.cc:424-432``).  A running timeline is closed first."""
+        rank = self.topo.rank if self.topo is not None else 0
+        self.stop_timeline()
+        self.timeline = timeline_mod.Timeline(
+            timeline_mod.rank_trace_path(path, rank),
+            mark_cycles=mark_cycles, rank=rank,
+            clock_offset_ns=timeline_mod.estimate_server_clock_offset_ns())
+        if self.controller is not None and rank == 0:
+            self.controller.timeline = self.timeline
+
+    def stop_timeline(self) -> None:
+        if self.timeline is not None:
+            self.timeline.close()
+            self.timeline = None
+        if self.controller is not None:
+            self.controller.timeline = None
+
     def _destroy_groups(self) -> None:
         for group in (*self._own_groups, self.nccl_group, self.control_group):
             if group is not None:
@@ -275,6 +299,10 @@ class HorovodGlobalState:
                 env_mod.DEFAULT_STALL_SHUTDOWN_TIME_SECONDS),
             cache_capacity=env_mod.get_int(env_mod.HOROVOD_CACHE_CAPACITY,
                                            env_mod.DEFAULT_CACHE_CAPACITY))
+        path = env_mod.get_str(env_mod.HOROVOD_TIMELINE)
+        if path:
+            self.start_timeline(path, env_mod.get_bool(
+                env_mod.HOROVOD_TIMELINE_MARK_CYCLES))
         register_ops(self.op_manager, topo, self.device, self.plane,
                      self.control_group, self.nccl_group)
         self._finalizer = threading.Thread(
@@ -325,6 +353,7 @@ class HorovodGlobalState:
             try:
                 self._destroy_groups()
             finally:
+                self.stop_timeline()
                 self.shutdown_complete.set()
 
     @staticmethod
@@ -338,16 +367,29 @@ class HorovodGlobalState:
         """One cycle (``RunLoopOnce``, ``operations.cc:595-689``): negotiate,
         then execute every agreed response.  Returns False to stop."""
         requests = self.tensor_queue.pop_messages()
+        timeline = self.timeline
+        if timeline is not None:
+            # The cycle id before negotiating: the same id names the same
+            # global round on every rank.
+            timeline.set_cycle(self.cycle_count + 1)
+        t0 = time.monotonic()
         response_list = self.controller.compute_response_list(
             requests, self.shutdown_requested.is_set())
         self.cycle_count += 1
         self._last_cycle_had_work = bool(requests) \
             or bool(response_list.responses)
         if self._last_cycle_had_work:
+            # Busy cycles only: idle lockstep rounds are waiting, not
+            # negotiating.
+            timeline_mod.phase_stats.add("negotiate", time.monotonic() - t0)
             flight_recorder.record("cycle", n=self.cycle_count,
                                    requests=len(requests),
                                    responses=len(response_list.responses))
+        if timeline is not None:
+            timeline.mark_cycle()
         for response in response_list.responses:
+            # The cycle the response was negotiated in, for its spans.
+            response._cycle = self.cycle_count
             self._perform_operation(response)
         return not response_list.shutdown
 
@@ -357,6 +399,12 @@ class HorovodGlobalState:
             self._release_join()
             return
         entries = self.tensor_queue.get_entries_for_response(response)
+        # Each popped entry's LC_SUBMITTED closes, and LC_NEGOTIATED marks
+        # its cycle; zero-substituted entries, never enqueued, get neither.
+        for name in timeline_mod.lifecycle_lanes(entries):
+            timeline_mod.lifecycle_end(name, "LC_SUBMITTED")
+            timeline_mod.lifecycle_instant(
+                name, "LC_NEGOTIATED", cycle=getattr(response, "_cycle", None))
         if response.response_type == ResponseType.ERROR:
             for e in entries:
                 self._fire_callback(e, Status.error(response.error_message))
@@ -367,6 +415,9 @@ class HorovodGlobalState:
             return
         if len(entries) != len(response.tensor_names):
             entries = self._zero_substituted(response, entries)
+        timeline = self.timeline
+        if timeline is not None:
+            timeline.op_start(response, entries)
         try:
             status = self.op_manager.execute(response, entries)
         except HorovodInternalError as e:
@@ -374,6 +425,10 @@ class HorovodGlobalState:
         except Exception as e:  # noqa: BLE001 — the loop must keep serving
             log.error("op execution failed: %s", e, exc_info=True)
             status = Status.error(f"{type(e).__name__}: {e}")
+        if timeline is not None:
+            # For work queued on the card this marks the end of dispatch;
+            # completion is the finalizer's LC_CALLBACK.
+            timeline.op_end(response, entries)
         if status.pending:
             self._finalizer_queue.put(entries)
             return
@@ -424,11 +479,14 @@ class HorovodGlobalState:
 
     @staticmethod
     def _fire_callback(e: TensorTableEntry, status: Status) -> None:
+        timeline_mod.lifecycle_begin(e.tensor_name, "LC_CALLBACK")
         try:
             e.callback(status, e)
         except Exception:  # noqa: BLE001 — a raising callback must not kill
             # the thread that fires the others
             log.error("callback for %r raised", e.tensor_name, exc_info=True)
+        finally:
+            timeline_mod.lifecycle_end(e.tensor_name, "LC_CALLBACK")
 
     def _fail_all_pending(self, msg: str) -> None:
         # Close first: an add racing the drain must fail fast, not strand.

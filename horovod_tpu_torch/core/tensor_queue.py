@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
+from . import timeline as timeline_mod
 from .messages import Request, RequestType, Response
 
 
@@ -92,6 +93,9 @@ class TensorQueue:
                 "failed); reinitialize before submitting collectives")
 
     def add(self, entry: TensorTableEntry, request: Request) -> None:
+        # The tensor's lifecycle opens here; the response that collects
+        # it closes LC_SUBMITTED (core/state.py).
+        timeline_mod.lifecycle_begin(entry.tensor_name, "LC_SUBMITTED")
         with self._lock:
             self._check_open()
             if entry.tensor_name in self._table:

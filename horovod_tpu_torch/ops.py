@@ -18,6 +18,7 @@ the in-place flavors write into the torch tensor they are given.
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -28,6 +29,7 @@ from .core.handle_manager import HandleManager
 from .core.messages import RequestType
 from .core.state import global_state
 from .core.tensor_queue import Status
+from .core.timeline import phase_stats
 
 # Reduce-op constants (reference ``horovod/torch/mpi_ops.py``).
 Sum = "sum"
@@ -248,11 +250,19 @@ def synchronize(handle: int, timeout: Optional[float] = None) -> torch.Tensor:
     """Wait for an async op and return its result (the submitted tensor for
     the in-place flavors).  A CUDA result is complete on the card when this
     returns."""
-    return _handles.wait(handle, timeout=timeout)
+    t0 = time.monotonic()
+    try:
+        return _handles.wait(handle, timeout=timeout)
+    finally:
+        phase_stats.add("wait", time.monotonic() - t0)
 
 
 def synchronize_many(handles, timeout: Optional[float] = None) -> list:
     """Wait for a batch of async ops; their results in handle order, under
     one deadline for the whole batch (``frameworks/jax/ops.py:240``).  On
     any error or timeout every handle is released before this raises."""
-    return _handles.wait_many(list(handles), timeout=timeout)
+    t0 = time.monotonic()
+    try:
+        return _handles.wait_many(list(handles), timeout=timeout)
+    finally:
+        phase_stats.add("wait", time.monotonic() - t0)

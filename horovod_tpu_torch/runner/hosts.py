@@ -2,9 +2,9 @@
 
 Copy of ``horovod_tpu/runner/hosts.py`` (the reference's
 ``runner/common/util/hosts.py``): ``parse_hosts`` turns ``"h1:4,h2:4"``
-into :class:`HostInfo`, and :func:`get_host_assignments` gives one
-:class:`SlotInfo` per process with its rank, local and cross coordinates,
-host-major.
+into :class:`HostInfo`, ``parse_host_files`` reads a ``--hostfile`` into
+such a string, and :func:`get_host_assignments` gives one :class:`SlotInfo`
+per process with its rank, local and cross coordinates, host-major.
 """
 
 from __future__ import annotations
@@ -55,6 +55,24 @@ def parse_hosts(hosts_string: str) -> List[HostInfo]:
     """``"h1:4,h2:2"`` → ``[HostInfo(h1, 4), HostInfo(h2, 2)]``."""
     return [HostInfo.from_string(part)
             for part in hosts_string.split(",") if part.strip()]
+
+
+def parse_host_files(filename: str) -> str:
+    """``--hostfile`` format: one ``host slots=N`` (or ``host:N``) per line,
+    ``#`` comments; returns the ``-H`` string (reference
+    ``runner/launch.py`` hostfile handling)."""
+    specs = []
+    with open(filename) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if "slots=" in line:
+                host, _, slots = line.partition("slots=")
+                specs.append(f"{host.strip()}:{slots.strip()}")
+            else:
+                specs.append(line.replace(" ", ":"))
+    return ",".join(specs)
 
 
 def get_host_assignments(hosts: List[HostInfo], min_np: int,

@@ -1,17 +1,22 @@
 """The launcher (reference ``horovodrun``).
 
-Counterpart of ``horovod_tpu/runner/launch.py``: parse the arguments,
-assign slots, host the rendezvous store, start one worker per slot with its
-``HOROVOD_*`` environment (``ssh`` for a remote host), stream each worker's
-output with its rank in front, and end the job when a worker fails.  The
-store is a ``torch.distributed.TCPStore`` (``transport/store.py``), bound to
+Counterpart of ``horovod_tpu/runner/launch.py``: parse the arguments and
+the ``--config-file``, assign slots, host the rendezvous store, start one
+worker per slot with its ``HOROVOD_*`` environment (``ssh`` for a remote
+host), stream each worker's output (with its rank in front under
+``--verbose``; into ``DIR/rank.<r>/stdout`` and ``stderr`` as well under
+``--output-filename DIR``), and end the job when a worker fails.  The store
+is a ``torch.distributed.TCPStore`` (``transport/store.py``), bound to
 127.0.0.1 when every slot is on this host; the workers' runtime joins its
 process groups through it.
 
 Usage::
 
     python -m horovod_tpu_torch.runner.launch -np 2 python train.py
-    python -m horovod_tpu_torch.runner.launch -np 8 -H h1:4,h2:4 python train.py
+    python -m horovod_tpu_torch.runner.launch -np 8 -H h1:4,h2:4 \\
+        python train.py
+    python -m horovod_tpu_torch.runner.launch -np 2 -v \\
+        --timeline-filename tl.json --output-filename logs python train.py
 """
 
 from __future__ import annotations
@@ -29,7 +34,13 @@ from typing import Dict, List, Optional
 
 from ..common import env as env_mod
 from ..transport.store import StoreServer
-from .hosts import SlotInfo, get_host_assignments, parse_hosts
+from . import config_parser
+from .hosts import (
+    SlotInfo,
+    get_host_assignments,
+    parse_host_files,
+    parse_hosts,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,15 +51,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of worker processes")
     p.add_argument("-H", "--hosts", default=None,
                    help='host list like "h1:4,h2:4"; default localhost:np')
+    p.add_argument("--hostfile", default=None,
+                   help="file with one 'host slots=N' per line, in place "
+                        "of -H")
+    p.add_argument("--output-filename", default=None,
+                   help="also write each rank's output into "
+                        "<dir>/rank.N/stdout|stderr")
+    p.add_argument("--verbose", "-v", action="count", default=0,
+                   help="put [rank]<stdout>: / [rank]<stderr>: in front of "
+                        "each worker line")
     p.add_argument("--start-timeout", type=int, default=None,
                    help="abort unless every worker reaches hvd.init() within "
                         "this many seconds (default: wait forever)")
+    p.add_argument("--config-file", default=None,
+                   help="YAML file whose keys mirror the flags (flags win)")
     p.add_argument("--data-plane", default=None,
                    choices=[env_mod.PLANE_HOST, "tcp", env_mod.PLANE_NCCL],
                    help="where the cross-rank allreduce runs: the host "
                         "(cpu, the default) or the card (nccl)")
     # Runtime knobs, which become every rank's HOROVOD_* environment
-    # (horovod_tpu/runner/launch.py:58-63).
+    # (runner/config_parser.py; horovod_tpu/runner/launch.py:58-79).
+    p.add_argument("--fusion-threshold-mb", type=float, default=None,
+                   help="fusion buffer size in MB (default 64)")
+    p.add_argument("--cycle-time-ms", type=float, default=None,
+                   help="background cycle time in ms (default 1)")
+    p.add_argument("--timeline-filename", default=None,
+                   help="write a Chrome trace: rank 0 at this path, rank r "
+                        "at <path>.rank<r>")
+    p.add_argument("--timeline-mark-cycles", action="store_true",
+                   default=False,
+                   help="mark each negotiation cycle in the trace")
+    p.add_argument("--log-level", default=None,
+                   choices=["trace", "debug", "info", "warning", "error"])
     p.add_argument("--cache-capacity", type=int, default=None,
                    help="response cache entries (default 1024; 0 turns "
                         "the cache off)")
@@ -67,22 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def runtime_env(args) -> Dict[str, str]:
-    """The ``HOROVOD_*`` variables the command line sets on every rank."""
-    env: Dict[str, str] = {}
-    if args.data_plane is not None:
-        env[env_mod.HOROVOD_DATA_PLANE] = args.data_plane
-    if args.cache_capacity is not None:
-        env[env_mod.HOROVOD_CACHE_CAPACITY] = str(args.cache_capacity)
-    if args.no_stall_check:
-        env[env_mod.HOROVOD_STALL_CHECK_DISABLE] = "1"
-    if args.stall_check_warning_time_seconds is not None:
-        env[env_mod.HOROVOD_STALL_CHECK_TIME_SECONDS] = str(
-            args.stall_check_warning_time_seconds)
-    if args.stall_check_shutdown_time_seconds is not None:
-        env[env_mod.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS] = str(
-            args.stall_check_shutdown_time_seconds)
-    return env
+#: The ``HOROVOD_*`` variables the command line sets on every rank.
+runtime_env = config_parser.env_from_args
 
 
 def _slot_env(slot: SlotInfo, rdv_addr: str, rdv_port: int,
@@ -132,19 +152,46 @@ def spawn_worker(slot: SlotInfo, command: List[str],
 
 
 class _OutputPump(threading.Thread):
-    """Forwards a worker's stream line by line with its rank in front."""
+    """Forwards a worker's stream line by line with ``prefix`` in front,
+    and writes each line to ``tee_path`` as well when one is given
+    (reference ``gloo_run.py:150-163``)."""
 
-    def __init__(self, stream, sink, prefix: str, name: str):
+    def __init__(self, stream, sink, prefix: str, tee_path: Optional[str],
+                 name: str):
         super().__init__(daemon=True, name=name)
         self._stream = stream
         self._sink = sink
         self._prefix = prefix
+        self._tee = open(tee_path, "w") if tee_path else None
         self.start()
 
     def run(self):
-        for line in self._stream:
-            self._sink.write(f"{self._prefix}{line}")
-            self._sink.flush()
+        try:
+            for line in self._stream:
+                self._sink.write(f"{self._prefix}{line}")
+                self._sink.flush()
+                if self._tee:
+                    self._tee.write(line)
+                    self._tee.flush()
+        finally:
+            if self._tee:
+                self._tee.close()
+
+
+def _pumps(proc: subprocess.Popen, rank: int, args) -> List[_OutputPump]:
+    """The two pumps of one worker: the rank prefix only under
+    ``--verbose`` (``horovod_tpu/runner/launch.py:340-341``), the
+    ``--output-filename`` files when asked for."""
+    tees = {"stdout": None, "stderr": None}
+    if args.output_filename:
+        rank_dir = os.path.join(args.output_filename, f"rank.{rank}")
+        os.makedirs(rank_dir, exist_ok=True)
+        tees = {k: os.path.join(rank_dir, k) for k in tees}
+    return [_OutputPump(stream, sink,
+                        f"[{rank}]<{k}>: " if args.verbose else "", tees[k],
+                        name=f"hvd-pump-r{rank}-{k[3:]}")
+            for k, stream, sink in (("stdout", proc.stdout, sys.stdout),
+                                    ("stderr", proc.stderr, sys.stderr))]
 
 
 def _terminate(procs: List[subprocess.Popen]) -> None:
@@ -156,9 +203,9 @@ def _terminate(procs: List[subprocess.Popen]) -> None:
 def launch_job(args, command: List[str]) -> int:
     """Run ``command`` once per slot; the job's exit code is the first
     failing worker's (the others are terminated), or 0."""
+    hosts = parse_host_files(args.hostfile) if args.hostfile else args.hosts
     slots = get_host_assignments(
-        parse_hosts(args.hosts or f"localhost:{args.num_proc}"),
-        args.num_proc)
+        parse_hosts(hosts or f"localhost:{args.num_proc}"), args.num_proc)
     local_only = all(_is_local(s.hostname) for s in slots)
     server = StoreServer(local_only)
     rdv_addr = "127.0.0.1" if local_only else \
@@ -171,12 +218,7 @@ def launch_job(args, command: List[str]) -> int:
             proc = spawn_worker(slot, command,
                                 _slot_env(slot, rdv_addr, server.port, extra))
             procs.append(proc)
-            pumps.append(_OutputPump(proc.stdout, sys.stdout,
-                                     f"[{slot.rank}]<stdout>: ",
-                                     name=f"hvd-pump-r{slot.rank}-out"))
-            pumps.append(_OutputPump(proc.stderr, sys.stderr,
-                                     f"[{slot.rank}]<stderr>: ",
-                                     name=f"hvd-pump-r{slot.rank}-err"))
+            pumps.extend(_pumps(proc, slot.rank, args))
         # Poll every worker: a crash in any rank ends the job even while
         # the others block in collectives.  --start-timeout: each worker
         # checks in ``worker_started`` when its runtime connects.
@@ -219,6 +261,11 @@ def _exit_on_sigterm(signum, frame):
 
 def run_commandline(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    try:
+        config_parser.apply_config_file(args, args.config_file)
+    except ValueError as e:
+        print(f"launch: {e}", file=sys.stderr)
+        return 2
     command = args.command
     if command and command[0] == "--":
         command = command[1:]

@@ -759,7 +759,7 @@ print("WORKER_DONE", rank)
                COLLECTIVES_OUT=str(out))
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
-         "-np", str(SIZE), sys.executable, str(script)],
+         "-np", str(SIZE), "--verbose", sys.executable, str(script)],
         cwd=str(REPO), env=env, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, start_new_session=True)
     try:

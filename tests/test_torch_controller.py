@@ -436,7 +436,8 @@ def _run_port_job(size: int, out: Path):
     env = dict(os.environ, HOROVOD_MESH_STARTUP_TIMEOUT=GLOO_TIMEOUT)
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
-         "-np", str(size), sys.executable, str(script), str(out)],
+         "-np", str(size), "--verbose", sys.executable, str(script),
+         str(out)],
         cwd=str(REPO), env=env, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, start_new_session=True)
     try:

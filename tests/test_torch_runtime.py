@@ -6,9 +6,10 @@ DistributedOptimizer, and compares the results.  The arithmetic is the same
 on both sides (widen 16-bit floats to fp32, multiply by prescale·postscale,
 cast back), so the results are bit-equal unless stated.
 
-Also here: the guard that the port and ``chip_smoke.py`` load neither JAX
-nor ``horovod_tpu`` (in a subprocess, because this test process imports
-JAX), and the entry points' refusals.
+Also here: the guard that the port, its tools, its examples
+(``examples/torch_port/``) and ``chip_smoke.py`` load neither JAX nor
+``horovod_tpu`` (in a subprocess, because this test process imports JAX),
+and the entry points' refusals.
 """
 
 from __future__ import annotations
@@ -305,10 +306,15 @@ def test_collectives_after_shutdown_raise_and_reinit_works():
 _GUARD = """
 import sys
 sys.path.insert(0, {repo!r})
+sys.path.insert(0, {examples!r})
 import torch
 import chip_smoke
 import profile_step
+import adasum_bert_pretraining
+import pytorch_imagenet_resnet50
+import pytorch_synthetic_benchmark
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.tools import critical_path, trace_merge
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.training import train_step
 
@@ -338,7 +344,8 @@ sys.exit(1 if loaded else 0)
 
 
 def test_port_and_chip_smoke_load_no_jax():
-    proc = subprocess.run([sys.executable, "-c", _GUARD.format(repo=str(REPO))],
+    proc = subprocess.run([sys.executable, "-c", _GUARD.format(
+        repo=str(REPO), examples=str(REPO / "examples" / "torch_port"))],
                           capture_output=True, text=True, timeout=300,
                           cwd=str(REPO))
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -350,6 +357,7 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 def _sources():
     yield from sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
+    yield from sorted((REPO / "examples" / "torch_port").glob("*.py"))
     yield REPO / "chip_smoke.py"
     yield REPO / "profile_step.py"
 

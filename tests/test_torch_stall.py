@@ -486,8 +486,8 @@ def job(tmp_path_factory):
     t0 = time.monotonic()
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np", "3",
-         "--stall-check-shutdown-time-seconds", "2", sys.executable,
-         str(script), str(out)],
+         "--verbose", "--stall-check-shutdown-time-seconds", "2",
+         sys.executable, str(script), str(out)],
         cwd=str(REPO), env=env, text=True, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, start_new_session=True)
     try:

@@ -259,7 +259,7 @@ def _launch(np_: int, script: str, *flags: str) -> int:
 def test_launcher_prefixes_output_and_exports_the_slot(capfd):
     code = _launch(2, 'echo "hi $HOROVOD_RANK/$HOROVOD_SIZE '
                    '$HOROVOD_GLOO_RENDEZVOUS_ADDR $HOROVOD_DATA_PLANE"; '
-                   'echo oops >&2', "--data-plane", "nccl")
+                   'echo oops >&2', "--data-plane", "nccl", "--verbose")
     out, err = capfd.readouterr()
     assert code == 0
     for r in (0, 1):
