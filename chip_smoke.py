@@ -191,8 +191,41 @@ Phases, in order; any failure raises and the exit code is not 0:
     example's ``Total img/sec`` line (echoed with its prefix and in its
     file); prints ``critical_path``'s per-rank attribution over the
     gradients' cycles and each rank's ``phase_stats``, in ms per step.
+21. ResNet-50 at np=2 with every BatchNorm over both ranks' batch
+    (``--worker np2-syncbn``; ``ResNet(sync_bn=True)``: B8's statistics
+    summed across the ranks, ``synced_matmul_bn_stats``), on the one card,
+    the host plane, bf16, 224x224, SGD-momentum.  One seeded global batch
+    of 128 whose second half is ``2x + 1``; this process first takes one
+    np=1 step on all of it (the reference) and the same step with the
+    halves swapped (the bf16 noise floor, printed).  Each rank then takes
+    ``SYNC_STEPS`` steps on its 64 images, and, from the same weights, one
+    step with ``sync_bn=False`` (the control).  Asserts on each rank and
+    step: 36 B8 launches; 161 allreduced gradients plus 53 forward and 53
+    backward statistics allreduces (none in the control); a finite loss;
+    the parameters' hash equal on both ranks.  After step 1: the applied
+    gradient of ``SYNC_WATCHED`` equal on both ranks and within
+    ``SYNC_GRAD_REL_RMS`` of the np=1 step's, the running-statistics update
+    of ``SYNC_STATS_WATCHED`` equal on both ranks and within
+    ``SYNC_STATS_REL_RMS`` of np=1's; the control outside both limits.
+    From step 2 on rank 1 sends no serialized request (each layer's
+    allreduces are named after it, so they hit the cache).  Prints ms per
+    step beside the control's and phase 11's, the ms in the statistics
+    allreduces and the cache counters.
+22. The checkpoint (``horovod_tpu_torch.checkpoint``).  In phase 21's
+    worker, after the synced steps: rank 0 saves the model and optimizer
+    with ``save_rotating``, both ranks ``restore_latest`` onto the card
+    (``like=``) and must hold the live state's hash, and a missing path
+    must raise ``CheckpointNotFoundError`` on both.  Then in this process
+    at np=1: ResNet-50 and its SGD-momentum state (~205 MB) saved with
+    ``save_rotating(keep=CKPT_KEEP)`` after steps 1, 2 and 3; one byte of
+    the newest payload flipped; ``restore_latest`` must log the skip with
+    its reason and return step 2's snapshot, from which step 3
+    (deterministic cuDNN) must give the live step 3's bits; ``restore``
+    of a missing path raises ``CheckpointNotFoundError``.  Prints the save
+    and restore seconds and MB/s.
 
-The last two lines are the kernels' JSON summary (B8, the three flash
+The last two lines are the kernels' JSON summary (B8, whose launches are
+phase 5's and phase 21's synced steps' on both ranks, the three flash
 kernels and the Adasum kernels, whose launches are phase 13's and whose
 times are the sums over phase 13's windows per step and rank, averaged
 over its ranks and steps) and
@@ -200,9 +233,9 @@ over its ranks and steps) and
 
 ``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
 ``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR``, ``--worker
-np2-overlap DIR``, ``--worker nccl-np2`` and ``--worker example SCRIPT
-ARGS...`` are the launched workers of phases 11, 12, 13, 14, 18, 10 and
-20.
+np2-overlap DIR``, ``--worker nccl-np2``, ``--worker example SCRIPT
+ARGS...`` and ``--worker np2-syncbn DIR`` are the launched workers of
+phases 11, 12, 13, 14, 18, 10, 20 and 21.
 """
 
 from __future__ import annotations
@@ -227,10 +260,15 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch import checkpoint
+from horovod_tpu_torch import ops as hvd_ops
 from horovod_tpu_torch.backend import adasum as adasum_backend
 from horovod_tpu_torch.backend import cuda as cuda_backend
 from horovod_tpu_torch.common.env import PLANE_HOST, PLANE_NCCL
-from horovod_tpu_torch.common.exceptions import HorovodInternalError
+from horovod_tpu_torch.common.exceptions import (
+    CheckpointNotFoundError,
+    HorovodInternalError,
+)
 from horovod_tpu_torch.common.topology import ProcessTopology
 from horovod_tpu_torch.core import controller as controller_mod
 from horovod_tpu_torch.core.messages import DataType, Response, ResponseType
@@ -432,6 +470,42 @@ EXAMPLE = REPO / "examples" / "torch_port" / "pytorch_synthetic_benchmark.py"
 EXAMPLE_ARGS = ("--device", "cuda:0", "--batch-size", "32",
                 "--num-warmup-batches", "2", "--num-iters", "2")
 EXAMPLE_STEPS = 2 + 2 * 3
+# Phase 21: ResNet-50 at np=2 with every BatchNorm synced across the ranks,
+# against one np=1 step on the whole batch.  One seeded global batch of
+# 128 (each rank its 64), its second half 2x + 1: the ranks' local
+# statistics then differ by O(1).  SYNC_STEPS synced steps, then one
+# unsynced (the control).
+SYNC_STEPS = 2
+# The layers whose statistics each step allreduces, forward and backward:
+# the stem, the 16 3x3 BatchNorms and the 36 fused 1x1 layers.
+SYNC_LAYERS = 53
+# Parameters whose applied gradient is held against np=1's: the stem conv,
+# the first fused 1x1 conv with a gradient in step 1 (the first block's
+# projection: flax zero-inits each block's last BatchNorm scale, so the
+# block's FusedConv1x1BN_0 gets none) and the fc layer.
+SYNC_WATCHED = ("conv_init.kernel", "BottleneckBlock_0.fused_proj.kernel",
+                "Dense_0.kernel")
+# Layers whose running statistics are held against np=1's: the stem's
+# BatchNorm, the first fused 1x1 layer and a fused 1x1 layer at 7x7 (whose
+# M = 64 * 49 per rank leaves a half-full last row tile).
+SYNC_STATS_WATCHED = ("bn_init", "BottleneckBlock_0.FusedConv1x1BN_0",
+                      "BottleneckBlock_13.FusedConv1x1BN_1")
+# Relative RMS against the np=1 step: the applied gradient of SYNC_WATCHED,
+# and each watched layer's running-statistics update (running minus its
+# initial value).  The np=1 step itself, with the batch's halves swapped
+# (only the order of its sums changes), lies 0.025 from the unswapped one
+# on conv_init's gradient, 0.022 on the projection's and 0.0014 on fc's:
+# the BatchNorm backward's cancellation leaves bf16 noise of that size in
+# the gradients below it (an H100 80GB HBM3 at 700 W; the phase prints
+# this floor each time).  The gradient limit is twice that floor; the
+# statistics, fp32 sums, sit at 1e-4 of it.  The unsynced control
+# (0.43-1.16 and 0.056-1.0 there) must exceed each limit on its watched
+# set.
+SYNC_GRAD_REL_RMS = 0.05
+SYNC_STATS_REL_RMS = 0.02
+# Phase 22: the rotating snapshots kept.
+CKPT_KEEP = 2
+
 # The op spans of the trace, and critical_path's phases chip_smoke prints.
 OP_SPANS = ("ALLREDUCE", "ADASUM", "BROADCAST", "ALLGATHER", "ALLTOALL")
 TRACE_PHASES = ("fusion", "reduce", "dispatch", "negotiation_wait")
@@ -2550,6 +2624,399 @@ def phase_example_np2(card_line: str) -> dict:
     return result
 
 
+def sync_batch(dev: torch.device) -> tuple:
+    """Phase 21's global batch: 128 seeded images, the second half 2x + 1."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(2 * NP2_BATCH, IMAGE, IMAGE, 3, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (2 * NP2_BATCH,), device=dev, generator=gen)
+    x[NP2_BATCH:] = 2 * x[NP2_BATCH:] + 1
+    return x, y
+
+
+def sync_model(dev: torch.device, sync: bool, seed: int = 0) -> tuple:
+    """ResNet-50 (bf16, fused) from ``seed`` and its SGD-momentum
+    ``DistributedOptimizer``."""
+    model = resnet.ResNet50(
+        num_classes=1000, dtype=torch.bfloat16, fuse_conv1x1_bn=True,
+        sync_bn=sync, generator=torch.Generator().manual_seed(seed)).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=list(model.named_parameters()))
+    return model, opt
+
+
+def stats_probe() -> dict:
+    """Wraps ``ops.allreduce``, through which the synced layers reduce their
+    statistics: counts their forward (``.fwd``) and backward (``.bwd``)
+    allreduces and sums the wall seconds spent in them."""
+    acc = {"fwd": 0, "bwd": 0, "seconds": 0.0}
+    inner = hvd_ops.allreduce
+
+    def counted(tensor, *args, name=None, **kwargs):
+        t = time.perf_counter()
+        try:
+            return inner(tensor, *args, name=name, **kwargs)
+        finally:
+            if name is not None and name.startswith("sync_bn."):
+                acc[name.rsplit(".", 1)[1]] += 1
+                acc["seconds"] += time.perf_counter() - t
+
+    hvd_ops.allreduce = counted
+    return acc
+
+
+def running_stats(model) -> dict:
+    """The watched layers' running mean and variance, on the host."""
+    return {name: (model.get_submodule(name).mean.float().cpu(),
+                   model.get_submodule(name).var.float().cpu())
+            for name in SYNC_STATS_WATCHED}
+
+
+def sync_step(model, opt, batch: dict, watched: list, probe: dict,
+              negotiation: dict) -> dict:
+    """One step of phase 21's job, with its counts, times and state."""
+    torch.cuda.synchronize()
+    launches = conv_bn_stats.LAUNCHES
+    counts = dict(cuda_backend.stats)
+    stats = dict(probe)
+    before = negotiation_snapshot(negotiation)
+    t0 = time.perf_counter()
+    loss = train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {
+        **negotiation_delta(before, negotiation),
+        "loss": float(loss), "ms": ms,
+        "launches": conv_bn_stats.LAUNCHES - launches,
+        "allreduce_tensors": cuda_backend.stats["allreduce_tensors"]
+        - counts["allreduce_tensors"],
+        "stats_fwd": probe["fwd"] - stats["fwd"],
+        "stats_bwd": probe["bwd"] - stats["bwd"],
+        "stats_ms": 1e3 * (probe["seconds"] - stats["seconds"]),
+        "hash": _sha_all(p for _, p in model.named_parameters()),
+        "applied": [p.grad.float().cpu() for p in watched],
+        "running": running_stats(model)}
+
+
+def checkpoint_probe(model, opt, out_dir: str) -> dict:
+    """Phase 22 at np=2: rank 0 saves the synced model and its optimizer,
+    both ranks restore the newest snapshot onto the card, and a missing
+    path raises ``CheckpointNotFoundError`` on both."""
+    base = os.path.join(out_dir, "ckpt", "resnet50")
+    live = _sha_all(model.state_dict().values())
+    t0 = time.perf_counter()
+    published = checkpoint.save_rotating(
+        base, {"model": model.state_dict(), "opt": opt.state_dict(),
+               "step": SYNC_STEPS}, keep=CKPT_KEEP)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = checkpoint.restore_latest(
+        base, like={"model": model.state_dict(), "opt": opt.state_dict(),
+                    "step": 0})
+    restore_s = time.perf_counter() - t0
+    try:
+        checkpoint.restore(os.path.join(out_dir, "ckpt", "missing"))
+        missing = None
+    except CheckpointNotFoundError as e:
+        missing = str(e)
+    return {"published": os.path.basename(published), "save_s": save_s,
+            "restore_s": restore_s, "live": live, "step": state["step"],
+            "restored": _sha_all(state["model"].values()),
+            "devices": sorted({str(v.device)
+                               for v in state["model"].values()}),
+            "missing": missing}
+
+
+def np2_syncbn_worker(out_dir: str) -> None:
+    """One rank of phase 21's job: SYNC_STEPS synced steps on its half of
+    the batch, phase 22's checkpoint of that state, then one unsynced step
+    from the same weights (the control)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    hvd.init(device="cuda:0")
+    rank, size = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    assert size == 2 and dev == torch.device("cuda", 0), (size, dev)
+    x, y = sync_batch(dev)
+    shard = slice(rank * NP2_BATCH, (rank + 1) * NP2_BATCH)
+    batch = {"x": x[shard].contiguous(), "y": y[shard].contiguous()}
+    del x, y
+    probe = stats_probe()
+    negotiation = negotiation_probe()
+    out = {}
+    for sync, steps in ((True, SYNC_STEPS), (False, 1)):
+        model, opt = sync_model(dev, sync)
+        params = dict(model.named_parameters())
+        watched = [params[name] for name in SYNC_WATCHED]
+        synced = sum(getattr(m, "sync_name", None) is not None
+                     for m in model.modules())
+        assert synced == (SYNC_LAYERS if sync else 0), synced
+        out[f"sync.{sync}"] = [
+            sync_step(model, opt, batch, watched, probe, negotiation)
+            for _ in range(steps)]
+        if sync:
+            out["ckpt"] = checkpoint_probe(model, opt, out_dir)
+        del model, opt, params, watched
+        torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    hvd.shutdown()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    print("NP2_SYNCBN_DONE", rank, flush=True)
+
+
+def sync_reference(dev: torch.device) -> tuple:
+    """Phase 21's np=1 step on the whole batch of 128: the applied gradient
+    of SYNC_WATCHED and the watched running statistics; then the same step
+    with the batch's halves swapped, which changes nothing but the order
+    of the sums: its distance from the first is the bf16 noise floor."""
+    hvd.init()
+    x, y = sync_batch(dev)
+    steps = []
+    for order in (slice(None), torch.cat([torch.arange(NP2_BATCH, 2 *
+                                                       NP2_BATCH),
+                                          torch.arange(NP2_BATCH)])):
+        model, opt = sync_model(dev, True)
+        train_step(model, opt, {"x": x[order], "y": y[order]})
+        params = dict(model.named_parameters())
+        steps.append({
+            "applied": [params[n].grad.float().cpu() for n in SYNC_WATCHED],
+            "running": running_stats(model)})
+        del model, opt, params
+    del x, y
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    ref, swapped = steps
+    return ref, sync_errors(swapped, ref)
+
+
+def sync_errors(step: dict, ref: dict) -> dict:
+    """Relative RMS against the np=1 step: each watched applied gradient,
+    and per watched layer the larger of its running mean's and running
+    variance's update (running minus the initial 0 and 1)."""
+    grads = {}
+    for name, got, want in zip(SYNC_WATCHED, step["applied"],
+                               ref["applied"]):
+        assert want.norm() > 0, f"{name}: no gradient in the np=1 step"
+        grads[name] = rel_rms(got, want)
+    stats = {}
+    for name in SYNC_STATS_WATCHED:
+        (mean, var), (rmean, rvar) = step["running"][name], \
+            ref["running"][name]
+        stats[name] = max(rel_rms(mean, rmean), rel_rms(var - 1, rvar - 1))
+    return {"grad": grads, "stats": stats}
+
+
+def phase_np2_syncbn(card_line: str, np2: dict) -> dict:
+    """Phase 21 and phase 22's np=2 part: the reference step here, then the
+    job through the launcher (``--worker np2-syncbn``)."""
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    try:
+        ref, floor = sync_reference(dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="np2_syncbn.",
+                                     dir=REPO / "_runs") as out_dir:
+        t0 = time.perf_counter()
+        code, out, err = launch_job(2, ["np2-syncbn", out_dir],
+                                    LAUNCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"np=2 SyncBN job failed with exit {code}:"
+                                 f"\n{out}\n{err}")
+        ranks = [torch.load(Path(out_dir) / f"rank{r}.pt")
+                 for r in range(2)]
+    for sync in (True, False):
+        runs = [r[f"sync.{sync}"] for r in ranks]
+        for step, (s0, s1) in enumerate(zip(*runs)):
+            for r, s in enumerate((s0, s1)):
+                want = (SYNC_LAYERS, SYNC_LAYERS) if sync else (0, 0)
+                assert s["launches"] == LAUNCHES_PER_STEP, (sync, r, step, s)
+                assert (s["stats_fwd"], s["stats_bwd"]) == want, \
+                    (sync, r, step, s["stats_fwd"], s["stats_bwd"])
+                assert s["allreduce_tensors"] == NP2_PARAMS + sum(want), \
+                    (sync, r, step, s["allreduce_tensors"])
+                assert math.isfinite(s["loss"]), (sync, r, step, s["loss"])
+            if s0["hash"] != s1["hash"]:
+                raise AssertionError(
+                    f"sync_bn={sync} step {step}: parameters differ across "
+                    f"ranks ({s0['hash']} vs {s1['hash']})")
+    errors = {}
+    for sync in (True, False):
+        s0, s1 = (r[f"sync.{sync}"][0] for r in ranks)
+        for name, a0, a1 in zip(SYNC_WATCHED, s0["applied"], s1["applied"]):
+            assert torch.equal(a0, a1), (sync, name)
+        for name in SYNC_STATS_WATCHED:
+            for a, b in zip(s0["running"][name], s1["running"][name]):
+                if sync:
+                    assert torch.equal(a, b), name
+        errors[sync] = sync_errors(s0, ref)
+    synced, control = errors[True], errors[False]
+    print(f"np2 syncbn against the np=1 step on 128 images, relative RMS: "
+          f"synced {json.dumps(synced)}; control {json.dumps(control)}; "
+          f"np=1 with the halves swapped (the noise floor) "
+          f"{json.dumps(floor)} (limits: gradients {SYNC_GRAD_REL_RMS}, "
+          f"statistics' update {SYNC_STATS_REL_RMS}) [{card_line}]",
+          flush=True)
+    # Each layer's allreduces are named after it: from step 2 on rank 1's
+    # requests are all answered by the cache.
+    for step, s in enumerate(ranks[1]["sync.True"][1:], start=1):
+        if s["serialized_request_count"] != 0:
+            raise AssertionError(
+                f"step {step}: rank 1 sent {s['serialized_request_count']} "
+                f"serialized requests with sync_bn=True (expected 0)")
+    ckpts = [r["ckpt"] for r in ranks]
+    for r, c in enumerate(ckpts):
+        if c["restored"] != c["live"] or c["devices"] != ["cuda:0"] or \
+                c["step"] != SYNC_STEPS or not (c["missing"] or "").startswith(
+                    "no checkpoint at"):
+            raise AssertionError(f"rank {r} checkpoint: {c}")
+    assert ckpts[0]["live"] == ckpts[1]["live"]
+    assert ckpts[0]["missing"] == ckpts[1]["missing"]
+    assert ckpts[0]["published"] == ckpts[1]["published"] == \
+        "resnet50.00000001", ckpts
+    keys = ("loss", "ms", "stats_ms", "launches", "allreduce_tensors",
+            "stats_fwd", "stats_bwd", "negotiation_ms") + NEGOTIATION_COUNTERS
+    summary = {
+        "seconds": seconds, "floor": floor,
+        "errors": {str(k): v for k, v in errors.items()},
+        "launches": sum(s["launches"] for r in ranks for s in r["sync.True"]),
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "ckpt": [{k: c[k] for k in ("save_s", "restore_s", "published")}
+                 for c in ckpts],
+        "per_rank": {str(sync): [{k: [s[k] for s in r[f"sync.{sync}"]]
+                                  for k in keys} for r in ranks]
+                     for sync in (True, False)}}
+    for r in range(2):
+        on = summary["per_rank"]["True"][r]
+        off = summary["per_rank"]["False"][r]
+        print(f"np2 syncbn: rank {r} ResNet-50 batch {NP2_BATCH} "
+              f"{IMAGE}x{IMAGE} bf16, host plane, sync_bn=True ms/step "
+              f"{[round(v, 1) for v in on['ms']]} (in the {2 * SYNC_LAYERS} "
+              f"statistics allreduces {[round(v, 1) for v in on['stats_ms']]}"
+              f"), control sync_bn=False {[round(v, 1) for v in off['ms']]}, "
+              f"phase 11 (unsynced) "
+              f"{[round(v, 1) for v in np2['per_rank'][r]['ms']]}; losses "
+              f"{[round(v, 4) for v in on['loss']]}; allreduced tensors "
+              f"{on['allreduce_tensors']} ({NP2_PARAMS} gradients + "
+              f"{on['stats_fwd']} + {on['stats_bwd']}); ms in "
+              f"compute_response_list "
+              f"{[round(v, 1) for v in on['negotiation_ms']]}, serialized "
+              f"requests {on['serialized_request_count']}, cache hits "
+              f"{on['cache_hit_count']}, misses {on['cache_miss_count']}; "
+              f"peak {summary['peak_mem_gb'][r]:.1f} GB [{card_line}]",
+              flush=True)
+    print(f"np2 checkpoint: rank 0 saved {ckpts[0]['published']} in "
+          f"{ckpts[0]['save_s']:.3f}s; restore_latest on both ranks "
+          f"{[round(c['restore_s'], 3) for c in ckpts]}s, the live hash; "
+          f"a missing path raised CheckpointNotFoundError on both: "
+          f"{ckpts[0]['missing']!r} [{card_line}]", flush=True)
+    if max(synced["grad"].values()) > SYNC_GRAD_REL_RMS or \
+            max(synced["stats"].values()) > SYNC_STATS_REL_RMS:
+        raise AssertionError(
+            f"synced np=2 step against the np=1 step: {synced} (limits: "
+            f"gradients {SYNC_GRAD_REL_RMS}, statistics {SYNC_STATS_REL_RMS})")
+    if max(control["grad"].values()) <= SYNC_GRAD_REL_RMS or \
+            max(control["stats"].values()) <= SYNC_STATS_REL_RMS:
+        raise AssertionError(
+            f"the unsynced control must miss both limits: {control}")
+    return summary
+
+
+def flip_payload_byte(snapshot: str) -> None:
+    path = os.path.join(snapshot, checkpoint.PAYLOAD_FILE)
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def phase_checkpoint(card_line: str) -> dict:
+    """Phase 22 at np=1: three rotating snapshots of ResNet-50 and its
+    SGD-momentum state (after steps 1, 2 and 3), the newest corrupted;
+    ``restore_latest`` must skip it and return the second, from which step
+    3 must give the live step 3's bits."""
+    torch.backends.cudnn.deterministic = True
+    hvd.init()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batch = {"x": torch.randn(BATCH, IMAGE, IMAGE, 3, device=dev,
+                              generator=gen),
+             "y": torch.randint(0, 1000, (BATCH,), device=dev,
+                                generator=gen)}
+    model, opt = sync_model(dev, False)
+    skipped = []
+    warn = checkpoint.log.warning
+    checkpoint.log.warning = lambda msg, *a: skipped.append(msg % a)
+    try:
+        (REPO / "_runs").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="ckpt.",
+                                         dir=REPO / "_runs") as out_dir:
+            base = os.path.join(out_dir, "resnet50")
+            saves, published = [], []
+            for step in (1, 2, 3):
+                train_step(model, opt, batch)
+                torch.cuda.synchronize()
+                if step == 3:
+                    live = _sha_all(model.state_dict().values())
+                t0 = time.perf_counter()
+                published.append(checkpoint.save_rotating(
+                    base, {"model": model.state_dict(),
+                           "opt": opt.state_dict(), "step": step},
+                    keep=CKPT_KEEP))
+                saves.append(time.perf_counter() - t0)
+            nbytes = json.loads(Path(published[-1] + checkpoint.MANIFEST_SUFFIX)
+                                .read_text())["bytes"]
+            kept = [os.path.basename(p) for _, p in
+                    checkpoint._list_snapshots(base)]
+            assert kept == ["resnet50.00000003", "resnet50.00000002"], kept
+            flip_payload_byte(published[-1])
+            del model, opt
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state = checkpoint.restore_latest(base)
+            restore_s = time.perf_counter() - t0
+            assert state["step"] == 2, state["step"]
+            assert len(skipped) == 1 and "resnet50.00000003" in skipped[0] \
+                and "payload CRC mismatch" in skipped[0], skipped
+            model, opt = sync_model(dev, False, seed=1)
+            model.load_state_dict(state["model"])
+            opt.load_state_dict(state["opt"])
+            train_step(model, opt, batch)
+            torch.cuda.synchronize()
+            resumed = _sha_all(model.state_dict().values())
+            if resumed != live:
+                raise AssertionError(
+                    f"step 3 from the restored snapshot ({resumed}) differs "
+                    f"from the live step 3 ({live})")
+            try:
+                checkpoint.restore(os.path.join(out_dir, "missing"))
+                raise AssertionError("restore of a missing path returned")
+            except CheckpointNotFoundError as e:
+                missing = str(e)
+    finally:
+        checkpoint.log.warning = warn
+        torch.backends.cudnn.deterministic = False
+        hvd.shutdown()
+    mb = nbytes / 1e6
+    result = {"mb": mb, "save_s": saves, "restore_s": restore_s,
+              "save_mb_per_s": [mb / s for s in saves],
+              "restore_mb_per_s": mb / restore_s, "skipped": skipped[0],
+              "missing": missing}
+    print(f"checkpoint np=1: ResNet-50 + SGD-momentum, {mb:.1f} MB per "
+          f"snapshot; save_rotating(keep={CKPT_KEEP}) x3 "
+          f"{[round(s, 3) for s in saves]}s "
+          f"({[round(v, 1) for v in result['save_mb_per_s']]} MB/s); the "
+          f"newest corrupted, restore_latest {restore_s:.3f}s "
+          f"({result['restore_mb_per_s']:.1f} MB/s) logged "
+          f"{skipped[0]!r}; step 3 from the restored state the live step "
+          f"3's bits; a missing path: {missing!r} [{card_line}]", flush=True)
+    return result
+
+
 def reset_counts() -> None:
     conv_bn_stats.LAUNCHES = 0
     for launches in (fa.LAUNCHES, adasum_kernels.LAUNCHES):
@@ -2579,6 +3046,8 @@ def main() -> int:
             nccl_np2_worker()
         elif sys.argv[2:3] == ["example"]:
             example_worker(sys.argv[3], sys.argv[4:])
+        elif sys.argv[2:3] == ["np2-syncbn"]:
+            np2_syncbn_worker(sys.argv[3])
         else:
             raise SystemExit(f"unknown worker {sys.argv[2:]}")
         return 0
@@ -2764,6 +3233,26 @@ def main() -> int:
           f"cycles {example['ms_per_step']}; phase_stats ms per step "
           f"{example['phase_stats_ms_per_step']} [{card_line}]", flush=True)
 
+    torch.cuda.empty_cache()
+    syncbn = phase_np2_syncbn(card_line, np2)
+    print(f"np2 syncbn: 2 ranks x {SYNC_STEPS} synced steps and 1 control "
+          f"step in {syncbn['seconds']:.1f}s (launch included), "
+          f"{syncbn['launches']} B8 launches in the synced steps; against "
+          f"the np=1 step the synced gradients within "
+          f"{max(syncbn['errors']['True']['grad'].values())!r} (limit "
+          f"{SYNC_GRAD_REL_RMS}) and the running statistics within "
+          f"{max(syncbn['errors']['True']['stats'].values())!r} (limit "
+          f"{SYNC_STATS_REL_RMS}), the control at "
+          f"{max(syncbn['errors']['False']['grad'].values())!r} and "
+          f"{max(syncbn['errors']['False']['stats'].values())!r} "
+          f"[{card_line}]", flush=True)
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(card_line)
+    print(f"checkpoint: {ckpt['mb']:.1f} MB snapshots, save "
+          f"{[round(s, 3) for s in ckpt['save_s']]}s, restore_latest past a "
+          f"corrupted newest {ckpt['restore_s']:.3f}s, the resumed step "
+          f"bit-exact [{card_line}]", flush=True)
+
     timed = [r for r in rows if "ms" in r]
 
     def per_step(key):
@@ -2775,7 +3264,8 @@ def main() -> int:
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/matmul_bn_stats.cu",
         "replaces": "horovod_tpu/kernels/conv_bn_stats.py:90",
-        "launches": launches,
+        # The np=1 main path's, and phase 21's synced steps' on both ranks.
+        "launches": launches + syncbn["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # Per training step: each shape's time times its launches per step.
         "ms": per_step("ms"),

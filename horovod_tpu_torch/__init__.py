@@ -8,7 +8,11 @@ alltoall, join, barrier, ``synchronize_many``),
 (the whole step as one CUDA graph; ``hvd.wfbp``), ``hvd.Compression``, and
 the start-up broadcasts of parameters, optimizer state and objects, and
 ``hvd.start_timeline``/``stop_timeline`` (per-rank Chrome traces; the
-tools in ``horovod_tpu_torch.tools`` merge and read them).  The runtime
+tools in ``horovod_tpu_torch.tools`` merge and read them),
+``hvd.SyncBatchNorm`` and ``hvd.checkpoint`` (rank 0's atomic snapshots
+with a CRC manifest, ``save_rotating``/``restore_latest``).
+``HOROVOD_FAULT_SPEC`` injects faults at the runtime's sites
+(``common/faults.py``).  The runtime
 works on the card (``cuda:<local_rank>``) unless
 ``hvd.init(device="cpu")`` asks for the CPU.  This package imports
 neither JAX nor ``horovod_tpu``.
@@ -60,8 +64,9 @@ from .ops import (
     synchronize,
     synchronize_many,
 )
-from . import wfbp
+from . import checkpoint, wfbp
 from .optimizer import DistributedOptimizer, distributed_value_and_grad
+from .sync_batch_norm import SyncBatchNorm
 from .wfbp import make_overlapped_train_step
 
 __all__ = [
@@ -77,4 +82,5 @@ __all__ = [
     "Sum", "Average", "Adasum",
     "Compression", "DistributedOptimizer", "HorovodInternalError",
     "distributed_value_and_grad", "make_overlapped_train_step", "wfbp",
+    "SyncBatchNorm", "checkpoint",
 ]

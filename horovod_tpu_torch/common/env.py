@@ -63,6 +63,10 @@ HOROVOD_FLIGHT_RECORDER = "HOROVOD_FLIGHT_RECORDER"
 HOROVOD_FLIGHT_RECORDER_DIR = "HOROVOD_FLIGHT_RECORDER_DIR"
 HOROVOD_FLIGHT_RECORDER_EVENTS = "HOROVOD_FLIGHT_RECORDER_EVENTS"
 
+# -- deterministic fault injection (common/faults.py): the spec, read when
+# the package is imported; unset means no injection --
+HOROVOD_FAULT_SPEC = "HOROVOD_FAULT_SPEC"
+
 # -- logging --
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIMESTAMP = "HOROVOD_LOG_HIDE_TIMESTAMP"

@@ -65,6 +65,7 @@ from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..common import env as env_mod
+from ..common import faults
 from ..common.exceptions import HorovodInternalError
 from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology
@@ -273,6 +274,9 @@ class Controller:
                               env_mod.DEFAULT_STRAGGLER_DEMOTE_SECS),
             env_mod.get_int(env_mod.HOROVOD_STRAGGLER_DEMOTE_CYCLES,
                             env_mod.DEFAULT_STRAGGLER_DEMOTE_CYCLES))
+        # Tallies parked by a ``controller.tally`` delay: (when it is due,
+        # the request), replayed by ``_mature_deferred_tallies``.
+        self._deferred_tallies: List[Tuple[float, Request]] = []
 
     # ------------------------------------------------------------------
     # the per-cycle negotiation round
@@ -283,6 +287,8 @@ class Controller:
         """One negotiation round over this cycle's requests.  At size > 1
         every rank calls this every cycle: the collectives keep the ranks
         in lockstep."""
+        if faults.ACTIVE:
+            faults.inject("controller.negotiate", rank=self.topo.rank)
         if self.topo.size == 1:
             return self._single_process_responses(requests, should_shutdown)
         if self.topo.rank == 0:
@@ -418,6 +424,7 @@ class Controller:
             for req in rl.requests:
                 if self._increment(req):
                     ready.append(req.tensor_name)
+        ready.extend(self._mature_deferred_tallies())
         # A JOIN that lands after a tensor's last request from the ranks
         # still active must complete that tensor too.
         if self._joined_ranks:
@@ -631,11 +638,25 @@ class Controller:
     # message table
     # ------------------------------------------------------------------
 
-    def _increment(self, req: Request) -> bool:
+    def _increment(self, req: Request, defer_faults: bool = True) -> bool:
         """Tally one rank's readiness; True when the requesting ranks plus
         the joined ones cover the world (``IncrementTensorCount``,
         ``controller.cc:1030-1053``).  A JOIN completes when every rank has
-        joined."""
+        joined.
+
+        The ``controller.tally`` fault site: a ``delay_ms`` clause parks the
+        tally instead of sleeping, which would slow every rank's cycle
+        alike; the tensor then waits for exactly this rank, as it does for
+        a slow one.  A replay passes ``defer_faults=False`` so that an
+        ``after=`` clause cannot park it again."""
+        if faults.ACTIVE and defer_faults and self.topo.size > 1 \
+                and req.request_type != RequestType.JOIN:
+            delay = faults.inject_deferred("controller.tally",
+                                           rank=req.request_rank)
+            if delay > 0.0:
+                self._deferred_tallies.append(
+                    (time.monotonic() + delay, req))
+                return False
         if req.request_type == RequestType.JOIN:
             self._joined_ranks.add(req.request_rank)
             return len(self._joined_ranks) == self.topo.size
@@ -660,6 +681,23 @@ class Controller:
             entry.majority_seen = time.monotonic()
         needed = self.topo.size - len(self._joined_ranks - entry.ranks)
         return len(entry.ranks) >= needed
+
+    def _mature_deferred_tallies(self) -> List[str]:
+        """Replay the parked tallies that are due; returns the tensors the
+        replays completed."""
+        if not self._deferred_tallies:
+            return []
+        now = time.monotonic()
+        completed: List[str] = []
+        parked: List[Tuple[float, Request]] = []
+        for due, req in self._deferred_tallies:
+            if due <= now:
+                if self._increment(req, defer_faults=False):
+                    completed.append(req.tensor_name)
+            else:
+                parked.append((due, req))
+        self._deferred_tallies = parked
+        return completed
 
     # ------------------------------------------------------------------
     # response construction & validation

@@ -6,17 +6,20 @@ API (``inc``, ``set_gauge``, ``observe``, ``get_counter``, ``get_gauge``,
 the same fixed log2 histogram buckets.  The Prometheus rendering and the
 HTTP scrape are not ported (ROADMAP.md A10).
 
-The names the runtime writes, all on rank 0 (:data:`CATALOG`):
+The names the runtime writes (:data:`CATALOG`), all on rank 0 but the last:
 
 - ``stalled_tensors`` (gauge) and ``stall_shutdowns_total`` (counter),
   from the stall inspector;
 - ``straggler_lag_seconds`` (histogram), ``straggler_suspect`` (gauge) and
   ``straggler_flags_total`` (counter), from the straggler detector;
 - ``fusion_reorders_total`` (counter), the cycles in which the readiness
-  order changed the order of the responses.
+  order changed the order of the responses;
+- ``faults_injected_total`` (counter), each fault-injection clause fired
+  (``common/faults.py``), on any rank.
 
-Only the background thread records, so the registry takes no lock; a
-reader's ``snapshot`` copies each dict in one step.
+The background thread records everything but the fault fires, which are
+rare and come from the thread that hit the site; the registry takes no
+lock, and a reader's ``snapshot`` copies each dict in one step.
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ CATALOG: Dict[str, Tuple[str, str]] = {
     "fusion_reorders_total": (
         "counter", "cycles whose readiness order differed from the order "
                    "of completion"),
+    "faults_injected_total": (
+        "counter", "fault-injection clauses fired (common/faults.py), on "
+                   "the rank that fired them"),
 }
 
 def flat(name: str, **labels) -> str:

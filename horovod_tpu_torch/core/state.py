@@ -56,6 +56,7 @@ from ..backend.cuda import (
     nccl_group,
 )
 from ..common import env as env_mod
+from ..common import faults
 from ..common.exceptions import HorovodInternalError
 from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology, from_env
@@ -395,6 +396,9 @@ class HorovodGlobalState:
 
     def _perform_operation(self, response: Response) -> None:
         """``PerformOperation`` analog (``operations.cc:256-336``)."""
+        if faults.ACTIVE:
+            faults.inject("dispatch.collective",
+                          rank=self.topo.rank if self.topo else None)
         if response.response_type == ResponseType.JOIN:
             self._release_join()
             return

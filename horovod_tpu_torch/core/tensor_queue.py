@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ..common import faults
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from . import timeline as timeline_mod
 from .messages import Request, RequestType, Response
@@ -93,6 +94,10 @@ class TensorQueue:
                 "failed); reinitialize before submitting collectives")
 
     def add(self, entry: TensorTableEntry, request: Request) -> None:
+        # The submission's fault site, before the lock: a delay here makes
+        # this rank a compute straggler while its peers keep negotiating.
+        if faults.ACTIVE:
+            faults.inject("enqueue.collective")
         # The tensor's lifecycle opens here; the response that collects
         # it closes LC_SUBMITTED (core/state.py).
         timeline_mod.lifecycle_begin(entry.tensor_name, "LC_SUBMITTED")

@@ -3,9 +3,12 @@
 from .conv_bn_stats import (
     FusedConv1x1BN,
     MatmulBNStats,
+    SyncedMatmulBNStats,
     matmul_bn_stats,
     matmul_bn_stats_reference,
+    synced_matmul_bn_stats,
 )
 
-__all__ = ["FusedConv1x1BN", "MatmulBNStats", "matmul_bn_stats",
-           "matmul_bn_stats_reference"]
+__all__ = ["FusedConv1x1BN", "MatmulBNStats", "SyncedMatmulBNStats",
+           "matmul_bn_stats", "matmul_bn_stats_reference",
+           "synced_matmul_bn_stats"]

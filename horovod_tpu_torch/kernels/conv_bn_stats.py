@@ -13,12 +13,18 @@ with ``wgmma`` and stores ``y`` by TMA, one persistent block per SM.
 the kernel does not take raises; nothing falls back.  The backward is the
 JAX package's ``_bwd_rule`` in plain torch matmuls (the TPU port never had a
 kernel there either).
+
+:func:`synced_matmul_bn_stats` is the counterpart of
+``sharded_matmul_bn_stats``: the same kernel on each rank's rows, its
+statistics summed across ranks with one Horovod allreduce, and the
+statistics' cotangents summed again in the backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +39,15 @@ LAUNCHES = 0
 #: ``csrc/matmul_bn_stats.cu``, checked against it when the library loads):
 #: the wrapper sums ``ceil(M / BLOCK_M)`` partial rows per column.
 BLOCK_M = 128
+
+
+_instances = itertools.count()
+
+
+def sync_layer_name() -> str:
+    """A synced layer's default name: its rank in this process's order of
+    construction, the same on every rank that builds the same model."""
+    return f"sync_bn.{next(_instances)}"
 
 
 def block_n(n: int) -> int:
@@ -166,11 +181,19 @@ def matmul_bn_stats(x: torch.Tensor, w: torch.Tensor
     return _launch(x, w)
 
 
+def _vjp(x, w, y, dy, ds1, ds2):
+    """The JAX package's ``_bwd_rule``: with ``r = dy + ds1 + 2·y·ds2`` (the
+    statistics' cotangents broadcast over rows, formed in fp32 from the
+    SAVED output ``y``), ``dx = r @ wᵀ`` and ``dw = xᵀ @ r``."""
+    r = dy.float() + ds1.float()[None, :] \
+        + 2.0 * y.float() * ds2.float()[None, :]
+    dx = (r @ w.float().t()).to(x.dtype)
+    dw = (x.float().t() @ r).to(w.dtype)
+    return dx, dw
+
+
 class MatmulBNStats(torch.autograd.Function):
-    """:func:`matmul_bn_stats` with the JAX package's VJP (``_bwd_rule``):
-    with ``r = dy + ds1 + 2·y·ds2`` (the statistics' cotangents broadcast
-    over rows, formed in fp32 from the SAVED output ``y``), ``dx = r @ wᵀ``
-    and ``dw = xᵀ @ r``."""
+    """:func:`matmul_bn_stats` with the JAX package's VJP (:func:`_vjp`)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -181,11 +204,59 @@ class MatmulBNStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds1, ds2):
         x, w, y = ctx.saved_tensors
-        r = dy.float() + ds1.float()[None, :] \
-            + 2.0 * y.float() * ds2.float()[None, :]
-        dx = (r @ w.float().t()).to(x.dtype)
-        dw = (x.float().t() @ r).to(w.dtype)
-        return dx, dw
+        return _vjp(x, w, y, dy, ds1, ds2)
+
+
+class SyncedMatmulBNStats(torch.autograd.Function):
+    """:func:`matmul_bn_stats` on this rank's rows, with the statistics of
+    every rank's rows (``sharded_matmul_bn_stats``).
+
+    Forward: the kernel, then one Sum allreduce of ``[s1; s2; rows]`` as
+    one fp32 tensor of ``2N + 1``, named ``<name>.fwd``.  Backward: one Sum
+    allreduce of ``[ds1; ds2]`` (``<name>.bwd``), then :func:`_vjp`.  Each
+    rank differentiates its own loss, and every rank's rows feed the same
+    global statistics, so the cotangent of a rank's local statistics is the
+    sum of every rank's cotangent of the global ones: the transpose of the
+    JAX ``psum``.  At size 1 neither allreduce runs."""
+
+    @staticmethod
+    def forward(ctx, x, w, name):
+        from .. import ops
+
+        y, s1, s2 = matmul_bn_stats(x, w)
+        n = s1.shape[0]
+        stats = torch.cat([s1, s2, s1.new_tensor([float(x.shape[0])])])
+        if ops.size_or_one() > 1:
+            stats = ops.allreduce(stats, op=ops.Sum, name=f"{name}.fwd")
+        ctx.save_for_backward(x, w, y)
+        ctx.name = name
+        count = stats[2 * n].clone()
+        ctx.mark_non_differentiable(count)
+        return y, stats[:n].clone(), stats[n:2 * n].clone(), count
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2, _dcount):
+        from .. import ops
+
+        x, w, y = ctx.saved_tensors
+        if ops.size_or_one() > 1:
+            n = ds1.shape[0]
+            d = ops.allreduce(torch.cat([ds1.float(), ds2.float()]),
+                              op=ops.Sum, name=f"{ctx.name}.bwd")
+            ds1, ds2 = d[:n], d[n:]
+        dx, dw = _vjp(x, w, y, dy, ds1, ds2)
+        return dx, dw, None
+
+
+def synced_matmul_bn_stats(x: torch.Tensor, w: torch.Tensor,
+                           name: str = "sync_bn.matmul"
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """``(y, s1, s2, count)``: ``y = x @ w`` for this rank's rows, and
+    ``sum(y)``, ``sum(y*y)`` and the row count over every rank's rows (fp32;
+    ``count`` a 0-d tensor).  ``name`` names the two allreduces; give each
+    layer its own, so that their shapes do not churn the response cache."""
+    return SyncedMatmulBNStats.apply(x, w, name)
 
 
 class FusedConv1x1BN(nn.Module):
@@ -197,13 +268,22 @@ class FusedConv1x1BN(nn.Module):
     one-pass variance, running statistics ``m·old + (1−m)·batch`` with the
     biased batch variance (like flax, unlike ``torch.nn.BatchNorm2d``).
     Parameter names follow the flax module: ``kernel`` is ``[Cin, Cout]``.
+
+    ``sync=True`` normalizes over every rank's batch
+    (:func:`synced_matmul_bn_stats`, allreduces named after
+    ``sync_name``), the counterpart of the JAX module's ``mesh``; at size 1
+    it runs what ``sync=False`` runs, bit for bit.
     """
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
                  dtype: torch.dtype = torch.bfloat16, momentum: float = 0.9,
                  epsilon: float = 1e-5, zero_scale: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync: bool = False):
         super().__init__()
+        #: The allreduces' name stem when the statistics are synced, else
+        #: None.
+        self.sync_name = sync_layer_name() if sync else None
         self.strides = strides
         self.dtype = dtype
         self.momentum = momentum
@@ -225,7 +305,13 @@ class FusedConv1x1BN(nn.Module):
         count = xm.shape[0]
         kernel = self.kernel.to(self.dtype)
         if self.training:
-            y, s1, s2 = MatmulBNStats.apply(xm, kernel)
+            from ..ops import size_or_one
+
+            if self.sync_name is not None and size_or_one() > 1:
+                y, s1, s2, count = synced_matmul_bn_stats(xm, kernel,
+                                                          self.sync_name)
+            else:
+                y, s1, s2 = MatmulBNStats.apply(xm, kernel)
             y = y.float()
             mean = s1 / count
             var = torch.clamp(s2 / count - mean * mean, min=0.0)

@@ -10,6 +10,13 @@ carry flax's auto-names (``BottleneckBlock_0``, ``Conv_0``, ``BatchNorm_0``,
 Where torch's defaults differ from flax's, this module does what flax does:
 ``padding='SAME'`` on a stride-2 3x3 pads (0 before, 1 after) on even inputs,
 and BatchNorm keeps the biased running variance with ``m·old + (1−m)·batch``.
+
+``ResNet(sync_bn=True)`` normalizes every BatchNorm over every rank's batch,
+as the JAX model does under its sharded step (GSPMD for the plain
+BatchNorms, ``fused_bn_mesh`` for the fused ones): each fused layer through
+``synced_matmul_bn_stats``, each plain one through one Sum allreduce of its
+fp32 ``[sum; sumsq; count]`` forward and of their two cotangents backward.
+Each layer's allreduces are named ``sync_bn.<its module path>``.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..initializers import lecun_normal
-from ..kernels.conv_bn_stats import FusedConv1x1BN
+from ..kernels.conv_bn_stats import FusedConv1x1BN, sync_layer_name
+from ..ops import size_or_one
+from ..sync_batch_norm import SumAcrossRanks
 
 _BN_MOMENTUM = 0.9
 _BN_EPSILON = 1e-5
@@ -74,12 +83,15 @@ class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm`` with ``force_float32_reductions`` and
     ``use_fast_variance`` on NHWC: fp32 one-pass statistics, running
     statistics ``m·old + (1−m)·batch`` with the biased variance, output
-    normalized in fp32 and cast to ``dtype``."""
+    normalized in fp32 and cast to ``dtype``.  ``sync=True``: statistics
+    over every rank's batch (:class:`SumAcrossRanks`, named after
+    ``sync_name``); at size 1 the same bits as ``sync=False``."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
                  momentum: float = _BN_MOMENTUM, epsilon: float = _BN_EPSILON,
-                 zero_scale: bool = False):
+                 zero_scale: bool = False, sync: bool = False):
         super().__init__()
+        self.sync_name = sync_layer_name() if sync else None
         self.dtype = dtype
         self.momentum = momentum
         self.epsilon = epsilon
@@ -92,9 +104,22 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if self.sync_name is not None and size_or_one() > 1:
+                flat = xf.reshape(-1, xf.shape[-1])
+                c = flat.shape[1]
+                stats = SumAcrossRanks.apply(torch.cat([
+                    flat.sum(0), (flat * flat).sum(0),
+                    flat.new_tensor([float(flat.shape[0])])]),
+                    self.sync_name, 2 * c)
+                count = stats[2 * c].detach()
+                mean = stats[:c] / count
+                var = torch.clamp(stats[c:2 * c] / count - mean * mean,
+                                  min=0.0)
+            else:
+                dims = tuple(range(x.dim() - 1))
+                mean = xf.mean(dims)
+                var = torch.clamp((xf * xf).mean(dims) - mean * mean,
+                                  min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -123,38 +148,41 @@ class Dense(nn.Module):
 class BottleneckBlock(nn.Module):
     def __init__(self, in_features: int, filters: int, strides: int = 1,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync_bn: bool = False):
         super().__init__()
         self.fused = fused
         out = filters * 4
         self.has_proj = in_features != out or strides != 1
+        norm = functools.partial(BatchNorm, dtype=dtype, sync=sync_bn)
         if fused:
             # Every conv(1x1)+BN pair runs the fused-statistics kernel; the
             # 3x3 stays a library convolution.
             fcb = functools.partial(FusedConv1x1BN, dtype=dtype,
                                     momentum=_BN_MOMENTUM,
-                                    epsilon=_BN_EPSILON, generator=generator)
+                                    epsilon=_BN_EPSILON, generator=generator,
+                                    sync=sync_bn)
             self.FusedConv1x1BN_0 = fcb(in_features, filters)
             self.Conv_0 = Conv(filters, filters, 3, strides, dtype=dtype,
                                generator=generator)
-            self.BatchNorm_0 = BatchNorm(filters, dtype)
+            self.BatchNorm_0 = norm(filters)
             self.FusedConv1x1BN_1 = fcb(filters, out, zero_scale=True)
             if self.has_proj:
                 self.fused_proj = fcb(in_features, out, strides=strides)
         else:
             self.Conv_0 = Conv(in_features, filters, 1, dtype=dtype,
                                generator=generator)
-            self.BatchNorm_0 = BatchNorm(filters, dtype)
+            self.BatchNorm_0 = norm(filters)
             self.Conv_1 = Conv(filters, filters, 3, strides, dtype=dtype,
                                generator=generator)
-            self.BatchNorm_1 = BatchNorm(filters, dtype)
+            self.BatchNorm_1 = norm(filters)
             self.Conv_2 = Conv(filters, out, 1, dtype=dtype,
                                generator=generator)
-            self.BatchNorm_2 = BatchNorm(out, dtype, zero_scale=True)
+            self.BatchNorm_2 = norm(out, zero_scale=True)
             if self.has_proj:
                 self.conv_proj = Conv(in_features, out, 1, strides,
                                       dtype=dtype, generator=generator)
-                self.norm_proj = BatchNorm(out, dtype)
+                self.norm_proj = norm(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -176,19 +204,21 @@ class BottleneckBlock(nn.Module):
 class BasicBlock(nn.Module):
     def __init__(self, in_features: int, filters: int, strides: int = 1,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync_bn: bool = False):
         super().__init__()
+        norm = functools.partial(BatchNorm, dtype=dtype, sync=sync_bn)
         self.has_proj = in_features != filters or strides != 1
         self.Conv_0 = Conv(in_features, filters, 3, strides, dtype=dtype,
                            generator=generator)
-        self.BatchNorm_0 = BatchNorm(filters, dtype)
+        self.BatchNorm_0 = norm(filters)
         self.Conv_1 = Conv(filters, filters, 3, dtype=dtype,
                            generator=generator)
-        self.BatchNorm_1 = BatchNorm(filters, dtype, zero_scale=True)
+        self.BatchNorm_1 = norm(filters, zero_scale=True)
         if self.has_proj:
             self.conv_proj = Conv(in_features, filters, 1, strides,
                                   dtype=dtype, generator=generator)
-            self.norm_proj = BatchNorm(filters, dtype)
+            self.norm_proj = norm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -202,13 +232,15 @@ class BasicBlock(nn.Module):
 class ResNet(nn.Module):
     """NHWC inputs ``[batch, H, W, 3]`` → logits ``[batch, num_classes]``.
     Train/eval mode (``.train()``/``.eval()``) picks batch or running
-    statistics, as flax's ``train`` argument does."""
+    statistics, as flax's ``train`` argument does.  ``sync_bn=True``:
+    every BatchNorm over every rank's batch (the module's docstring)."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: type,
                  num_classes: int = 1000, num_filters: int = 64,
                  dtype: torch.dtype = torch.bfloat16,
                  fuse_conv1x1_bn: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sync_bn: bool = False):
         super().__init__()
         if fuse_conv1x1_bn and block_cls is not BottleneckBlock:
             # Silently building unfused would let a run labelled "fused"
@@ -219,7 +251,7 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.conv_init = Conv(3, num_filters, 7, 2, padding=3, dtype=dtype,
                               generator=generator)
-        self.bn_init = BatchNorm(num_filters, dtype)
+        self.bn_init = BatchNorm(num_filters, dtype, sync=sync_bn)
         kwargs = {"fused": True} if fuse_conv1x1_bn else {}
         expansion = 4 if block_cls is BottleneckBlock else 1
         in_features = num_filters
@@ -230,12 +262,15 @@ class ResNet(nn.Module):
                 strides = 2 if i > 0 and j == 0 else 1
                 self.add_module(f"{block_cls.__name__}_{index}", block_cls(
                     in_features, filters, strides, dtype=dtype,
-                    generator=generator, **kwargs))
+                    generator=generator, sync_bn=sync_bn, **kwargs))
                 in_features = filters * expansion
                 index += 1
         self.num_blocks = index
         self.block_name = block_cls.__name__
         self.Dense_0 = Dense(in_features, num_classes, generator=generator)
+        for name, module in self.named_modules():
+            if getattr(module, "sync_name", None) is not None:
+                module.sync_name = f"sync_bn.{name}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

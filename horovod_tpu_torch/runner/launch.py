@@ -33,6 +33,7 @@ import time
 from typing import Dict, List, Optional
 
 from ..common import env as env_mod
+from ..common import faults
 from ..transport.store import StoreServer
 from . import config_parser
 from .hosts import (
@@ -145,6 +146,10 @@ def _ssh_command(slot: SlotInfo, command: List[str],
 
 def spawn_worker(slot: SlotInfo, command: List[str],
                  env: Dict[str, str]) -> subprocess.Popen:
+    """Start one slot's worker, here or over ``ssh``.  The ``worker.spawn``
+    fault site fires per spawn, matched on the slot's rank."""
+    if faults.ACTIVE:
+        faults.inject("worker.spawn", rank=slot.rank)
     cmd = command if _is_local(slot.hostname) else \
         _ssh_command(slot, command, env)
     return subprocess.Popen(cmd, env=env, text=True, stdout=subprocess.PIPE,

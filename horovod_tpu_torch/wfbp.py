@@ -192,7 +192,10 @@ class OverlappedTrainStep:
     requires grad gets the averaged gradient, zeros where no rank had one.
 
     Before the first step at size > 1 the ranks check through an object
-    allgather that they hold the same parameter and batch shapes.  The
+    allgather that they hold the same parameter and batch shapes.  A model
+    with a BatchNorm synced across ranks (``ResNet(sync_bn=True)``,
+    ``hvd.SyncBatchNorm``) is refused at size > 1: its statistics'
+    allreduces go through the runtime, which no graph can hold.  The
     returned loss is this rank's, of its last step.
     """
 
@@ -204,6 +207,10 @@ class OverlappedTrainStep:
         self._opt = optimizer
         self._check_signatures = check_signatures
         self._params = [p for p in model.parameters() if p.requires_grad]
+        # BatchNorms synced across ranks, which a graph cannot hold at
+        # size > 1.
+        self._synced = [name for name, m in model.named_modules()
+                        if getattr(m, "sync_name", None) is not None]
         self._sig_checked = False
         self._group = None
         self._graph = None
@@ -217,6 +224,14 @@ class OverlappedTrainStep:
     def _context(self):
         state = global_state()
         state._check_initialized()
+        if self._synced and state.topo.size > 1:
+            raise RuntimeError(
+                f"make_overlapped_train_step cannot capture the runtime's "
+                f"allreduces of a BatchNorm synced across ranks: layer "
+                f"{self._synced[0]!r} ({len(self._synced)} synced layers in "
+                f"all).  "
+                f"Build the model without synced BatchNorm (sync_bn=False), "
+                f"or train it through DistributedOptimizer.")
         if state.device.type == "cuda" and state.topo.size > 1 \
                 and state.plane != PLANE_NCCL:
             raise RuntimeError(
