@@ -240,6 +240,7 @@ phases 11, 12, 13, 14, 18, 10, 20 and 21.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -505,6 +506,19 @@ SYNC_GRAD_REL_RMS = 0.05
 SYNC_STATS_REL_RMS = 0.02
 # Phase 22: the rotating snapshots kept.
 CKPT_KEEP = 2
+
+# Phase 23: elastic ResNet-50 at np=2 on the one card.  The batches at
+# which the job pauses for a change of its hosts, with the size it runs at
+# then and the hosts file the phase writes (``ELASTIC_KILL``: the rank on
+# 127.0.0.1 SIGKILLs itself during that batch's backward), and the batches
+# in all.  Sizes 2 (batches 0-2), 1 (3-4), 2 (5-6), 1 (7-8).
+ELASTIC_BOTH = "localhost:1\n127.0.0.1:1\n"
+ELASTIC_PLAN = {3: (2, "localhost:1\n"), 5: (1, ELASTIC_BOTH)}
+ELASTIC_KILL = 7
+ELASTIC_BATCHES = 9
+ELASTIC_SIZES = [2, 2, 2, 1, 1, 2, 2, 1, 1]
+# How long a paused worker waits for the driver's ping.
+ELASTIC_PAUSE_SECS = 120
 
 # The op spans of the trace, and critical_path's phases chip_smoke prints.
 OP_SPANS = ("ALLREDUCE", "ADASUM", "BROADCAST", "ALLGATHER", "ALLTOALL")
@@ -2925,6 +2939,273 @@ def phase_np2_syncbn(card_line: str, np2: dict) -> dict:
     return summary
 
 
+def elastic_batch(batch: int, rank: int, dev: torch.device) -> dict:
+    """Batch ``batch``'s 64 images for ``rank``, from a seed of both."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * batch + rank)
+    return {"x": torch.randn(NP2_BATCH, IMAGE, IMAGE, 3, device=dev,
+                            generator=gen),
+            "y": torch.randint(0, 1000, (NP2_BATCH,), device=dev,
+                               generator=gen)}
+
+
+def _raw_sha(tensors) -> str:
+    """SHA-256 of the tensors' raw bytes, whatever their dtype (bf16
+    included)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_hash(model, inner, batch: int) -> str:
+    """The parameters, buffers, optimizer state and ``batch``, hashed."""
+    tensors = [t for _, t in sorted(model.state_dict().items())]
+    for pid, pstate in sorted(inner.state_dict()["state"].items()):
+        tensors.extend(v for _, v in sorted(pstate.items())
+                       if isinstance(v, torch.Tensor))
+    tensors.append(torch.tensor([batch]))
+    return _raw_sha(tensors)
+
+
+def elastic_worker(out_dir: str) -> None:
+    """One process of phase 23's elastic job (module docstring): records
+    each step, each state sync and each reset in
+    ``out_dir/<identity>.<pid>.jsonl``."""
+    from horovod_tpu_torch.elastic import state as elastic_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    hosts = Path(out_dir) / "hosts.txt"
+    me = os.environ["HOROVOD_HOSTNAME"]
+    log_path = Path(out_dir) / f"{me}.{os.getpid()}.jsonl"
+
+    def record(**fields) -> None:
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"t": time.time(), **fields}) + "\n")
+
+    hvd.init(device="cuda:0")
+    dev = hvd.device()
+    record(kind="start", epoch=int(os.environ.get("HOROVOD_EPOCH", "0")),
+           rank=hvd.rank(), size=hvd.size(), process=process_start())
+    model = resnet.ResNet50(
+        num_classes=1000, dtype=torch.bfloat16, fuse_conv1x1_bn=True,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    record(kind="model")
+    inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    opt = hvd.DistributedOptimizer(inner,
+                                   named_parameters=model.named_parameters())
+    state = hvd.elastic.TorchState(model, opt, batch=0)
+    record(kind="state")
+
+    def wait_for_change(text: str) -> None:
+        if hvd.rank() == 0:
+            hosts.write_text(text)
+            record(kind="change", what=text.strip().replace("\n", ","))
+        deadline = time.monotonic() + ELASTIC_PAUSE_SECS
+        while time.monotonic() < deadline:
+            state.check_host_updates()
+            time.sleep(0.02)
+        raise AssertionError(f"batch {state.batch}: the host change never "
+                             "arrived")
+
+    @hvd.elastic.run
+    def train(state):
+        record(kind="enter", epoch=int(os.environ["HOROVOD_EPOCH"]),
+               rank=hvd.rank(), size=hvd.size(), batch=state.batch,
+               hash=elastic_hash(model, inner, state.batch),
+               resets=elastic_state.reset_log)
+        while state.batch < ELASTIC_BATCHES:
+            plan = ELASTIC_PLAN.get(state.batch)
+            if plan is not None and hvd.size() == plan[0]:
+                wait_for_change(plan[1])
+            batch = elastic_batch(state.batch, hvd.rank(), dev)
+            check = None
+            if hvd.size() == 1 and state.batch == min(ELASTIC_PLAN):
+                # The first step at size 1: the same step without the
+                # runtime, from the same state, must give the same bits.
+                check = (copy.deepcopy(model.state_dict()),
+                         copy.deepcopy(inner.state_dict()))
+            torch.cuda.synchronize()
+            launches = conv_bn_stats.LAUNCHES
+            start = time.time()
+            t0 = time.perf_counter()
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = cross_entropy_loss(model(batch["x"]), batch["y"])
+            if state.batch == ELASTIC_KILL and hvd.size() == 2 \
+                    and me == "127.0.0.1":
+                record(kind="kill")
+                os.kill(os.getpid(), signal.SIGKILL)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            end = time.time()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = conv_bn_stats.LAUNCHES - launches
+            digest = elastic_hash(model, inner, state.batch + 1)
+            plain = None
+            if check is not None:
+                plain = elastic_plain_step(model, check, batch)
+            record(kind="step", epoch=int(os.environ["HOROVOD_EPOCH"]),
+                   rank=hvd.rank(), size=hvd.size(), batch=state.batch,
+                   loss=float(loss), ms=ms, start=start, end=end,
+                   launches=launches,
+                   params=_raw_sha(p for _, p in
+                                   sorted(model.named_parameters())),
+                   plain=plain)
+            state.batch += 1
+            state.commit()
+            record(kind="commit", batch=state.batch, hash=digest)
+
+    train(state)
+    record(kind="done", rank=hvd.rank(), size=hvd.size())
+    hvd.shutdown()
+
+
+def process_start() -> float:
+    """This process's start, wall clock: its start in clock ticks since
+    boot (``/proc/self/stat``) against the boot clock now."""
+    ticks = int(Path("/proc/self/stat").read_text().rsplit(")", 1)[1]
+                .split()[19])
+    age = time.clock_gettime(time.CLOCK_BOOTTIME) - \
+        ticks / os.sysconf("SC_CLK_TCK")
+    return time.time() - age
+
+
+def elastic_plain_step(model, check: tuple, batch: dict) -> str:
+    """The step of ``model`` from the state ``check`` (its state dict and
+    its SGD's) on ``batch`` with no runtime: the parameters' hash."""
+    local = copy.deepcopy(model)
+    local.load_state_dict(check[0])
+    opt = torch.optim.SGD(local.parameters(), lr=0.01, momentum=0.9)
+    opt.load_state_dict(check[1])
+    launches = conv_bn_stats.LAUNCHES
+    train_step(local, opt, batch)
+    torch.cuda.synchronize()
+    # The comparison's launches are not the main path's.
+    conv_bn_stats.LAUNCHES = launches
+    out = _raw_sha(p for _, p in sorted(local.named_parameters()))
+    del local, opt
+    return out
+
+
+def phase_elastic(card_line: str) -> dict:
+    """Phase 23 (module docstring): the job through the elastic launcher,
+    then its gates from the processes' records."""
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="elastic.",
+                                     dir=REPO / "_runs") as out_dir:
+        hosts = Path(out_dir) / "hosts.txt"
+        hosts.write_text(ELASTIC_BOTH)
+        script = Path(out_dir) / "discover.sh"
+        script.write_text(f"#!/bin/sh\ncat {hosts}\n")
+        script.chmod(0o755)
+        t0 = time.perf_counter()
+        code, out, err = launch_job(
+            2, ["elastic", out_dir], LAUNCH_TIMEOUT,
+            launcher_args=["--min-np", "1", "--max-np", "2",
+                           "--host-discovery-script", str(script)])
+        seconds = time.perf_counter() - t0
+        logs = {p.name: [json.loads(l) for l in p.read_text().splitlines()]
+                for p in sorted(Path(out_dir).glob("*.jsonl"))}
+    if code != 0:
+        raise AssertionError(f"elastic job failed with exit {code}:\n"
+                             f"{out[-6000:]}\n{err[-6000:]}")
+    return elastic_gates(logs, seconds, card_line)
+
+
+def elastic_gates(logs: dict, seconds: float, card_line: str) -> dict:
+    events = sorted((e for log in logs.values() for e in log),
+                    key=lambda e: e["t"])
+    steps = [e for e in events if e["kind"] == "step"]
+    # The survivor: the process on localhost that ran every batch.
+    survivor = next(name for name, log in logs.items()
+                    if name.startswith("localhost.")
+                    and any(e["kind"] == "done" for e in log))
+    own = logs[survivor]
+    sizes = [e["size"] for e in own if e["kind"] == "step"]
+    assert sizes == ELASTIC_SIZES, sizes
+    assert [e["batch"] for e in own if e["kind"] == "step"] == \
+        list(range(ELASTIC_BATCHES)), own
+    seen = [s for i, s in enumerate(sizes) if i == 0 or s != sizes[i - 1]]
+    assert seen == [2, 1, 2, 1], seen
+    for e in steps:
+        assert e["launches"] == LAUNCHES_PER_STEP, e
+        assert math.isfinite(e["loss"]), e
+    # Every step at size 2 is taken by both ranks and leaves the same
+    # parameters on both (each rank's BatchNorm statistics are its own).
+    for batch in range(ELASTIC_BATCHES):
+        both = [e for e in steps if e["batch"] == batch and e["size"] == 2]
+        if both:
+            assert len(both) == 2 and both[0]["params"] == \
+                both[1]["params"], (batch, both)
+    # After every sync (each entry into the training function at size 2),
+    # the same state on both ranks.
+    enters = [e for e in events if e["kind"] == "enter"]
+    for epoch in sorted({e["epoch"] for e in enters}):
+        at = [e for e in enters if e["epoch"] == epoch]
+        if at[0]["size"] == 2:
+            assert len(at) == 2 and at[0]["hash"] == at[1]["hash"] and \
+                at[0]["batch"] == at[1]["batch"], at
+    # The first step at size 1: the bits of a step without the runtime.
+    first = next(e for e in own if e["kind"] == "step" and e["size"] == 1)
+    assert first["plain"] is not None and first["plain"] == \
+        first["params"], first
+    # The kill: the survivor resumes from its last commit, bit for bit.
+    kill = next(e for e in events if e["kind"] == "kill")
+    commits = [e for e in own if e["kind"] == "commit" and e["t"] < kill["t"]]
+    resumed = next(e for e in own if e["kind"] == "enter"
+                   and e["t"] > kill["t"])
+    assert resumed["batch"] == commits[-1]["batch"] == ELASTIC_KILL, \
+        (resumed["batch"], commits[-1])
+    assert resumed["hash"] == commits[-1]["hash"], (resumed, commits[-1])
+    # Recovery times, on the survivor: from the change (the hosts file's
+    # write, or the kill) to the first finished step at the new size.
+    changes = [e for e in events if e["kind"] in ("change", "kill")]
+    resets = resumed["resets"]
+    assert len(resets) == 3 and len(changes) == 3, (resets, changes)
+    recovery = []
+    for change, reset in zip(changes, resets):
+        done = next(e for e in own if e["kind"] == "step"
+                    and e["epoch"] == reset["epoch"])
+        r = {
+            "change": change.get("what", "kill 127.0.0.1"),
+            "cause": reset["cause"], "epoch": reset["epoch"],
+            "total_s": done["end"] - change["t"],
+            "notice_s": reset["caught"] - change["t"],
+            "teardown_s": reset["torn_down"] - reset["caught"],
+            "wait_epoch_s": reset["adopted"] - reset["torn_down"],
+            "group_build_s": reset["initialized"] - reset["adopted"],
+            "sync_s": reset["synced"] - reset["initialized"],
+            # The phase's own checks between the sync and the step: the
+            # entry state's hash and the plain step's snapshot.
+            "checks_s": done["start"] - reset["synced"],
+            "first_step_s": done["end"] - done["start"],
+        }
+        joiner = [log for log in logs.values()
+                  if any(e["kind"] == "start" and e["epoch"] == reset["epoch"]
+                         for e in log)]
+        if joiner:
+            # The process that joined, from the change: its start, its
+            # runtime up (imports, CUDA, the group), its model built, its
+            # optimizer and elastic state built (torch's first optimizer
+            # in a process imports torch._dynamo), its state synced.
+            at = {e["kind"]: e for e in joiner[0]}
+            r["joiner_s"] = {
+                "process": at["start"]["process"] - change["t"],
+                "init": at["start"]["t"] - change["t"],
+                "model": at["model"]["t"] - change["t"],
+                "state": at["state"]["t"] - change["t"],
+                "synced": at["enter"]["t"] - change["t"]}
+        recovery.append(r)
+    ms = {size: [e["ms"] for e in own if e["kind"] == "step"
+                 and e["size"] == size] for size in (1, 2)}
+    return {"seconds": seconds, "recovery": recovery, "ms": ms,
+            "launches": sum(e["launches"] for e in steps)}
+
+
 def flip_payload_byte(snapshot: str) -> None:
     path = os.path.join(snapshot, checkpoint.PAYLOAD_FILE)
     with open(path, "r+b") as f:
@@ -3048,6 +3329,8 @@ def main() -> int:
             example_worker(sys.argv[3], sys.argv[4:])
         elif sys.argv[2:3] == ["np2-syncbn"]:
             np2_syncbn_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["elastic"]:
+            elastic_worker(sys.argv[3])
         else:
             raise SystemExit(f"unknown worker {sys.argv[2:]}")
         return 0
@@ -3253,6 +3536,34 @@ def main() -> int:
           f"corrupted newest {ckpt['restore_s']:.3f}s, the resumed step "
           f"bit-exact [{card_line}]", flush=True)
 
+    torch.cuda.empty_cache()
+    elastic = phase_elastic(card_line)
+    for r in elastic["recovery"]:
+        joiner = "" if "joiner_s" not in r else (
+            "; the joiner, from the change: process started "
+            f"{r['joiner_s']['process']:.3f}s, runtime up "
+            f"{r['joiner_s']['init']:.3f}s, model built "
+            f"{r['joiner_s']['model']:.3f}s, optimizer and state built "
+            f"{r['joiner_s']['state']:.3f}s, synced (its state hashed) "
+            f"{r['joiner_s']['synced']:.3f}s")
+        print(f"elastic recovery: {r['change']} ({r['cause']}, epoch "
+              f"{r['epoch']}): {r['total_s']:.3f}s from the change to the "
+              f"end of the first step at the new size = notice "
+              f"{r['notice_s']:.3f} + teardown {r['teardown_s']:.3f} + "
+              f"waiting for the epoch {r['wait_epoch_s']:.3f} + group "
+              f"build {r['group_build_s']:.3f} + state sync "
+              f"{r['sync_s']:.3f} + the phase's checks "
+              f"{r['checks_s']:.3f} + first step {r['first_step_s']:.3f}"
+              f"{joiner} [{card_line}]", flush=True)
+    print(f"elastic: np=2 ResNet-50 shrunk, grown and killed in "
+          f"{elastic['seconds']:.1f}s (launch included), sizes 2, 1, 2, 1; "
+          f"{elastic['launches']} B8 launches, 36 per step on every rank; "
+          f"the first size-1 step the bits of a step without the runtime; "
+          f"the survivor resumed at its last commit's hash; ms per step "
+          f"at size 1 {[round(v, 1) for v in elastic['ms'][1]]}, at size 2 "
+          f"{[round(v, 1) for v in elastic['ms'][2]]} [{card_line}]",
+          flush=True)
+
     timed = [r for r in rows if "ms" in r]
 
     def per_step(key):
@@ -3264,8 +3575,9 @@ def main() -> int:
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/matmul_bn_stats.cu",
         "replaces": "horovod_tpu/kernels/conv_bn_stats.py:90",
-        # The np=1 main path's, and phase 21's synced steps' on both ranks.
-        "launches": launches + syncbn["launches"],
+        # The np=1 main path's, phase 21's synced steps' on both ranks and
+        # phase 23's elastic steps' on every process.
+        "launches": launches + syncbn["launches"] + elastic["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # Per training step: each shape's time times its launches per step.
         "ms": per_step("ms"),

@@ -12,7 +12,10 @@ tools in ``horovod_tpu_torch.tools`` merge and read them),
 ``hvd.SyncBatchNorm`` and ``hvd.checkpoint`` (rank 0's atomic snapshots
 with a CRC manifest, ``save_rotating``/``restore_latest``).
 ``HOROVOD_FAULT_SPEC`` injects faults at the runtime's sites
-(``common/faults.py``).  The runtime
+(``common/faults.py``).  ``hvd.elastic`` (``State``, ``ObjectState``,
+``TorchState``, ``ElasticSampler``, ``run``) trains through hosts that
+leave, join or die, under the launcher's ``--min-np`` /
+``--host-discovery-script``.  The runtime
 works on the card (``cuda:<local_rank>``) unless
 ``hvd.init(device="cpu")`` asks for the CPU.  This package imports
 neither JAX nor ``horovod_tpu``.
@@ -64,7 +67,7 @@ from .ops import (
     synchronize,
     synchronize_many,
 )
-from . import checkpoint, wfbp
+from . import checkpoint, elastic, wfbp
 from .optimizer import DistributedOptimizer, distributed_value_and_grad
 from .sync_batch_norm import SyncBatchNorm
 from .wfbp import make_overlapped_train_step
@@ -82,5 +85,5 @@ __all__ = [
     "Sum", "Average", "Adasum",
     "Compression", "DistributedOptimizer", "HorovodInternalError",
     "distributed_value_and_grad", "make_overlapped_train_step", "wfbp",
-    "SyncBatchNorm", "checkpoint",
+    "SyncBatchNorm", "checkpoint", "elastic",
 ]

@@ -79,6 +79,7 @@ from ..core import timeline as timeline_mod
 from ..core.messages import Response
 from ..core.operation_manager import CollectiveOp
 from ..core.tensor_queue import Status, TensorTableEntry
+from ..transport import control
 
 #: Counts kept by the ops of this module and of the host plane, per
 #: collective: ``<kind>_responses`` (responses executed) and
@@ -238,6 +239,15 @@ class PlaneOp(CollectiveOp):
             self._run(response, entries, device)
             return record_done(stream, entries)
 
+    def _wait(self, work) -> None:
+        """A host-plane collective's wait can be aborted
+        (``transport/control.py``); a device-plane one only orders the
+        streams."""
+        if self.plane == PLANE_HOST:
+            control.wait(work)
+        else:
+            work.wait()
+
     def _wire(self, device: torch.device) -> torch.device:
         """Where the group's buffers lie: the host for the host plane
         (copying a CUDA buffer there waits for the op's stream, so a sent
@@ -301,7 +311,7 @@ class Allreduce(PlaneOp):
         t1 = time.monotonic()
         phases.add("fuse", t1 - t0)
         timeline_mod.lifecycle_span(lanes, "LC_WIRE_REDUCE_SCATTER", True)
-        self.group.allreduce([fused]).wait()
+        control.wait(self.group.allreduce([fused]))
         timeline_mod.lifecycle_span(lanes, "LC_WIRE_REDUCE_SCATTER", False)
         t2 = time.monotonic()
         phases.add("collective", t2 - t1)
@@ -339,6 +349,7 @@ class Allreduce(PlaneOp):
             works.append(self.group.send([send.view(torch.uint8)],
                                          (rank + 1) % size, 0))
             stats["host_ring_bytes_sent"] += send.numel() * send.element_size()
+        # Waited on whole: a timed wait would end a send or receive.
         for work in works:
             work.wait()
 
@@ -430,12 +441,12 @@ class Broadcast(PlaneOp):
             elif e.output is not src:
                 e.output.copy_(src)
             if self.group is not None:
-                self.group.broadcast([as_bytes(src).to(self._wire(device))],
-                                     self._root(e)).wait()
+                self._wait(self.group.broadcast(
+                    [as_bytes(src).to(self._wire(device))], self._root(e)))
             return
         buf = torch.empty(src.numel() * src.element_size(),
                           dtype=torch.uint8, device=self._wire(device))
-        self.group.broadcast([buf], self._root(e)).wait()
+        self._wait(self.group.broadcast([buf], self._root(e)))
         out = typed(buf.to(device), src.dtype, src.shape)
         if e.output is None:
             self._place(e, out)
@@ -473,7 +484,7 @@ class Allgather(PlaneOp):
         else:
             own = own.to(self._wire(device))
             blocks = [torch.empty_like(own) for _ in range(size)]
-            self.group.allgather([blocks], [own]).wait()
+            self._wait(self.group.allgather([blocks], [own]))
             blocks = [b.to(device) for b in blocks]
         for i, e in enumerate(entries):
             parts = []
@@ -518,9 +529,9 @@ class Alltoall(PlaneOp):
             wire = self._wire(device)
             out = torch.empty(sum(recv) * row, dtype=torch.uint8,
                               device=wire)
-            self.group.alltoall_base(
+            self._wait(self.group.alltoall_base(
                 out, buf.to(wire), [n * row for n in recv],
-                [n * row for n in send], dist.AllToAllOptions()).wait()
+                [n * row for n in send], dist.AllToAllOptions()))
             buf = out.to(device)
         self._place(e, typed(buf, e.tensor.dtype,
                              (sum(recv),) + tuple(e.tensor.shape[1:])))

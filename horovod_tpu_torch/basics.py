@@ -20,6 +20,10 @@ from .core.state import global_state, reset_global_state
 
 log = get_logger("horovod_tpu_torch.basics")
 
+#: The device the first ``init()`` resolved: an elastic re-init brings the
+#: runtime back on it (``elastic/state.py``).
+_init_device: Optional[torch.device] = None
+
 
 def _resolve_device(device: Union[None, str, torch.device],
                     topo: ProcessTopology) -> torch.device:
@@ -60,8 +64,17 @@ def init(device: Union[None, str, torch.device] = None,
         log.warning("ignoring %s: tuning knobs of the JAX runtime's own "
                     "machinery, which this port does not have",
                     ", ".join(f"{n}={env_mod.get_str(n)!r}" for n in tuning))
+    global _init_device
     topo = topology or from_env()
-    state.initialize(_resolve_device(device, topo), topology=topo)
+    resolved = _resolve_device(device, topo)
+    state.initialize(resolved, topology=topo)
+    if _init_device is None:
+        _init_device = resolved
+
+
+def init_device() -> Optional[torch.device]:
+    """The device the first ``init()`` of this process was given."""
+    return _init_device
 
 
 def shutdown() -> None:
@@ -69,8 +82,17 @@ def shutdown() -> None:
     reset_global_state()
 
 
+def _internal_reset() -> None:
+    """The elastic reset's teardown: end the runtime without negotiating
+    with a peer that may be dead or gone, and replace it by a fresh one
+    (``horovod_tpu/frameworks/jax/basics.py:262``)."""
+    reset_global_state(graceful=False)
+
+
 def is_initialized() -> bool:
-    return global_state().initialized.is_set()
+    """True while the runtime runs: False before ``init()``, after
+    ``shutdown()``, and once a peer's loss (or an abort) has ended it."""
+    return global_state().is_running()
 
 
 def _topo() -> ProcessTopology:

@@ -21,6 +21,8 @@ HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
 # -- rendezvous / control plane (set by the launcher) --
 HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
 HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+# The job's key for the signed elastic notify pings (common/secret.py).
+HOROVOD_SECRET_KEY = "HOROVOD_SECRET_KEY"
 # Bring-up budget in seconds: store connection, the control group's
 # rendezvous, and the timeout of every collective on the groups.
 HOROVOD_MESH_STARTUP_TIMEOUT = "HOROVOD_MESH_STARTUP_TIMEOUT"
@@ -67,6 +69,30 @@ HOROVOD_FLIGHT_RECORDER_EVENTS = "HOROVOD_FLIGHT_RECORDER_EVENTS"
 # the package is imported; unset means no injection --
 HOROVOD_FAULT_SPEC = "HOROVOD_FAULT_SPEC"
 
+# -- elastic (horovod_tpu_torch/elastic/): set by the elastic launcher --
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+# The membership epoch this process runs at (0 outside elastic jobs); it
+# scopes the process groups' store keys and every worker -> driver post.
+HOROVOD_EPOCH = "HOROVOD_EPOCH"
+HOROVOD_ELASTIC_RESET_LIMIT = "HOROVOD_ELASTIC_RESET_LIMIT"
+# A host is blacklisted after this many crash exits of its workers, or this
+# many transient ones (a worker that gave up re-initializing).
+HOROVOD_ELASTIC_CRASH_FAILURE_LIMIT = "HOROVOD_ELASTIC_CRASH_FAILURE_LIMIT"
+HOROVOD_ELASTIC_TRANSIENT_FAILURE_LIMIT = \
+    "HOROVOD_ELASTIC_TRANSIENT_FAILURE_LIMIT"
+# The driver declares a worker dead when its lease value has not changed
+# for this many seconds.
+HOROVOD_LEASE_TIMEOUT_SECS = "HOROVOD_LEASE_TIMEOUT_SECS"
+# "0" turns the reshard marker off: every epoch then syncs from rank 0.
+HOROVOD_RESHARD = "HOROVOD_RESHARD"
+# Seconds a blacklisted host stays out; 0, the default, is for good.
+HOROVOD_BLACKLIST_COOLDOWN_SECS = "HOROVOD_BLACKLIST_COOLDOWN_SECS"
+# The JAX launcher's journaled external rendezvous server: refused here.
+HOROVOD_RENDEZVOUS_EXTERNAL = "HOROVOD_RENDEZVOUS_EXTERNAL"
+# Seconds between two renewals of a worker's lease, each with its metrics
+# snapshot (elastic/rendezvous_client.py); 0 turns the renewals off.
+HOROVOD_METRICS_PUSH_SECS = "HOROVOD_METRICS_PUSH_SECS"
+
 # -- logging --
 HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIMESTAMP = "HOROVOD_LOG_HIDE_TIMESTAMP"
@@ -90,8 +116,6 @@ HOROVOD_AUTOTUNE_CODEC = "HOROVOD_AUTOTUNE_CODEC"
 HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
 HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
 HOROVOD_METRICS = "HOROVOD_METRICS"
-HOROVOD_METRICS_PUSH_SECS = "HOROVOD_METRICS_PUSH_SECS"
-HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 HOROVOD_WIRE_COMPRESSION = "HOROVOD_WIRE_COMPRESSION"
 HOROVOD_WIRE_EF = "HOROVOD_WIRE_EF"
@@ -118,6 +142,8 @@ DEFAULT_STRAGGLER_DEMOTE_SECS = 0.0
 DEFAULT_STRAGGLER_DEMOTE_CYCLES = 10
 DEFAULT_FLIGHT_RECORDER_EVENTS = 512
 DEFAULT_MESH_STARTUP_TIMEOUT = 60.0
+DEFAULT_METRICS_PUSH_SECS = 5.0
+DEFAULT_LEASE_TIMEOUT_SECS = 15.0
 
 PLANE_HOST = "cpu"
 PLANE_NCCL = "nccl"
@@ -148,6 +174,11 @@ def get_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
 
 
+def get_epoch() -> int:
+    """The elastic membership epoch (0 outside elastic jobs)."""
+    return get_int(HOROVOD_EPOCH, 0)
+
+
 def data_plane() -> str:
     """``HOROVOD_DATA_PLANE`` as :data:`PLANE_HOST` or :data:`PLANE_NCCL`.
     Any other value raises: the JAX package's ``auto`` (which falls back
@@ -174,8 +205,8 @@ def _forced_on(name: str) -> bool:
     return get_str(name).strip().lower() in ("1", "true", "yes", "on")
 
 
-_CONTROL_SPANS = ("ROADMAP A6 (elastic, whose rendezvous server and "
-                  "coordinator emit the RV_*/DRV_* spans)")
+_CONTROL_SPANS = ("ROADMAP A6 (the rest of elastic: the driver's DRV_* "
+                  "spans and tools/control_path.py, which reads them)")
 _TUNING = "ROADMAP A7 (autotune and the metrics export)"
 _CROSS_HOST = "ROADMAP A9 (the cross-host transport)"
 
@@ -194,8 +225,6 @@ UNSUPPORTED_KNOBS = (
     (HOROVOD_AUTOTUNE_WARMUP_SAMPLES, _given, _TUNING),
     (HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, _given, _TUNING),
     (HOROVOD_METRICS, _on, _TUNING),
-    (HOROVOD_METRICS_PUSH_SECS, _given, _TUNING),
-    (HOROVOD_ELASTIC, _on, "ROADMAP A6 (elastic)"),
     (HOROVOD_HIERARCHICAL_ALLREDUCE,
      lambda n: _given(n) and get_str(n).strip() not in ("0", "false",
                                                         "False"),

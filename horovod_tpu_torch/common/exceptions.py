@@ -7,6 +7,19 @@ class HorovodInternalError(RuntimeError):
     runtime is used outside what it supports."""
 
 
+class HostsUpdatedInterrupt(RuntimeError):
+    """The elastic driver reported a change of the host set; raised at the
+    next ``state.commit()`` / ``check_host_updates()`` (reference
+    ``common/exceptions.py:20``).  ``skip_sync`` is true only when every
+    change since the last one consumed was a removal: then every remaining
+    process already holds the committed state and the post-reset broadcast
+    is skipped."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__(f"hosts updated (skip_sync={skip_sync})")
+        self.skip_sync = skip_sync
+
+
 class DuplicateNameError(ValueError):
     """A tensor with the same name is already in flight.
 

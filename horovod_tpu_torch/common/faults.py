@@ -10,11 +10,11 @@ Spec grammar (``HOROVOD_FAULT_SPEC``, clauses joined by ``;``)::
     clause  := site[:key=value]...
     site    := controller.negotiate | controller.tally |
                enqueue.collective | dispatch.collective |
-               worker.spawn | ckpt.save
-               (tcp.send, tcp.recv, shm.send, shm.recv, rendezvous.get,
-               store.put, store.get_serve and driver.tick parse in the JAX
-               package only; here they raise ValueError naming the slice
-               of ROADMAP.md that brings their layer)
+               worker.spawn | ckpt.save | store.put | rendezvous.get |
+               driver.tick
+               (tcp.send, tcp.recv, shm.send, shm.recv and store.get_serve
+               parse in the JAX package only; here they raise ValueError
+               naming the item of ROADMAP.md that brings their layer)
     keys    := rank=N       only fire on this Horovod rank
                peer=N       only fire when the op targets this peer rank
                nth=N        fire exactly on the N-th matching call (1-based)
@@ -45,7 +45,13 @@ Where each site sits:
 - ``worker.spawn``: ``runner/launch.py``, each worker's spawn, matched on
   the slot's rank;
 - ``ckpt.save``: ``checkpoint.py``, between the payload's publish and its
-  manifest.
+  manifest;
+- ``store.put``: ``transport/store.py``, each ``set`` and each ``batch``
+  of the rendezvous store's client;
+- ``rendezvous.get``: ``transport/store.py``, each ``get`` of the client;
+- ``driver.tick``: ``elastic/driver.py``, each tick of the elastic
+  driver's discovery loop, outside its timing (``raise`` kills the loop,
+  ``exit`` the launcher).
 
 Every clause keeps its own count of matching calls, so a spec against a
 deterministic call sequence fails at the same point in every run.  When no
@@ -89,12 +95,9 @@ MISSING_SITES = {
     "tcp.recv": "ROADMAP A9 (the cross-host transport)",
     "shm.send": "ROADMAP A9 (the cross-host transport)",
     "shm.recv": "ROADMAP A9 (the cross-host transport)",
-    "rendezvous.get": "ROADMAP A6 (elastic: the rendezvous server and its "
-                      "store)",
-    "store.put": "ROADMAP A6 (elastic: the rendezvous server and its store)",
-    "store.get_serve": "ROADMAP A6 (elastic: the rendezvous server and its "
-                       "store)",
-    "driver.tick": "ROADMAP A6 (elastic: the driver)",
+    # A server-side site: the port's store server is TCPStore's, in C++.
+    "store.get_serve": "ROADMAP A6 (the journaled external rendezvous "
+                       "server, whose handler serves the gets)",
 }
 
 _ACTIONS = ("hang", "delay_ms", "raise", "raise_oserror", "exit", "drop",

@@ -43,8 +43,9 @@ The coordinator's guards, run every cycle after fusion:
 - the straggler detector (``_update_stragglers``): per rank, an EWMA of
   how long it keeps tensors waiting after the median announcer; above
   ``HOROVOD_STRAGGLER_THRESHOLD_SECS`` the rank is flagged, and a
-  :class:`DemotionPolicy` verdict is logged (no elastic driver acts on it
-  yet);
+  :class:`DemotionPolicy` verdict is logged and posted to the elastic
+  driver, which sheds the rank's host (outside elastic jobs nobody acts on
+  it);
 - the stall inspector (``_check_stalls``, the reference's
   ``stall_inspector.cc``): a tensor waiting past
   ``HOROVOD_STALL_CHECK_TIME_SECONDS`` is named in a warning with its
@@ -62,7 +63,7 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..common import env as env_mod
 from ..common import faults
@@ -94,6 +95,12 @@ log = get_logger("horovod_tpu_torch.controller")
 JOIN_TENSOR_NAME = "__join__"
 BARRIER_TENSOR_NAME = "__barrier__"
 
+#: Where a :class:`DemotionPolicy` verdict goes besides the log: called as
+#: ``(rank, lag_ewma, demote_secs, demote_cycles)``, it returns whether the
+#: report was posted.  The elastic package sets it (the driver sheds the
+#: rank's host); while it is None the verdict is detector-only.
+demotion_reporter: Optional[Callable[[int, float, float, int], bool]] = None
+
 _RESPONSE_TYPE = {
     RequestType.ALLREDUCE: ResponseType.ALLREDUCE,
     RequestType.ALLGATHER: ResponseType.ALLGATHER,
@@ -102,11 +109,6 @@ _RESPONSE_TYPE = {
     RequestType.ALLTOALL: ResponseType.ALLTOALL,
     RequestType.BARRIER: ResponseType.BARRIER,
 }
-
-#: The membership epoch a demotion verdict is scoped to: 0 until elastic
-#: re-init (ROADMAP.md A6) advances it.
-_EPOCH = 0
-
 
 def _mask_bytes(mask: int) -> bytes:
     return mask.to_bytes((mask.bit_length() + 7) // 8, "little")
@@ -384,7 +386,8 @@ class Controller:
             reason = str(e) if isinstance(e, HorovodInternalError) \
                 else f"{type(e).__name__}: {e}"
             self.control.broadcast(
-                AbortFrame(origin_rank=0, reason=reason).to_bytes())
+                AbortFrame(epoch=env_mod.get_epoch(), origin_rank=0,
+                           reason=reason).to_bytes())
             raise
         self.control.broadcast(verdict)
         return rlist
@@ -960,15 +963,16 @@ class Controller:
                 self._set_suspect_gauge()
         self._straggler_decaying = decaying or bool(self._straggler_suspects)
         if self.demotion.enabled:
-            victim = self.demotion.observe(_EPOCH, ewma, active)
+            victim = self.demotion.observe(env_mod.get_epoch(), ewma,
+                                           active)
             if victim is not None:
                 self._report_demotion(victim, ewma.get(victim, 0.0))
 
     def _report_demotion(self, victim: int, lag_ewma: float) -> None:
-        """A chronic-straggler verdict, detector-only: a flight-recorder
-        event and a log line.  There is no elastic driver to shed the rank
-        (ROADMAP.md A6); the JAX package takes the same branch when it has
-        no rendezvous store."""
+        """A chronic-straggler verdict: a flight-recorder event, a log line,
+        and a best-effort report through :data:`demotion_reporter` (in an
+        elastic job, to the driver through the store:
+        ``horovod_tpu/core/controller.py:1276-1306``)."""
         flight_recorder.record(
             "straggler_demotion", rank=victim, lag_ewma=round(lag_ewma, 6),
             threshold=self.demotion.demote_secs,
@@ -978,8 +982,19 @@ class Controller:
             "over HOROVOD_STRAGGLER_DEMOTE_SECS=%.3fs for %d consecutive "
             "busy cycles — reporting for demotion", victim, lag_ewma,
             self.demotion.demote_secs, self.demotion.demote_cycles)
-        log.warning("no rendezvous store reachable: demotion verdict "
-                    "for rank %d is detector-only", victim)
+        posted = False
+        if demotion_reporter is not None:
+            try:
+                posted = demotion_reporter(victim, lag_ewma,
+                                           self.demotion.demote_secs,
+                                           self.demotion.demote_cycles)
+            except Exception as exc:  # noqa: BLE001 — a report must never
+                # take down the negotiation cycle it rode along with
+                log.warning("demotion report for rank %d failed: %s",
+                            victim, exc)
+        if not posted:
+            log.warning("no elastic driver reached: demotion verdict for "
+                        "rank %d is detector-only", victim)
 
     def _set_suspect_gauge(self) -> None:
         worst = max(self._straggler_suspects,

@@ -373,9 +373,9 @@ def is_mask_frame(data: bytes) -> bool:
 @dataclass
 class AbortFrame:
     """The verdict of a cycle in which the coordinator failed: every rank
-    raises ``reason``.  ``epoch`` is the membership epoch (0 until elastic
-    re-init exists); the reason is capped at :data:`MAX_ABORT_REASON_BYTES`
-    when the frame is built."""
+    raises ``reason``.  ``epoch`` is the membership epoch
+    (``HOROVOD_EPOCH``, 0 outside elastic jobs); the reason is capped at
+    :data:`MAX_ABORT_REASON_BYTES` when the frame is built."""
 
     epoch: int = 0
     origin_rank: int = 0

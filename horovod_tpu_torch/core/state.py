@@ -33,6 +33,15 @@ both built on the launcher's store and called through their own methods.
 torch.distributed's default process group is never touched, so user code
 may initialize it before ``hvd.init()`` and keep it after
 ``hvd.shutdown()``.
+
+Elastic jobs (``horovod_tpu_torch/elastic/``): the groups' store keys are
+scoped by the membership epoch (``HOROVOD_EPOCH``), so that the world of a
+new epoch never reads an old one's.  :meth:`HorovodGlobalState.teardown`
+ends a runtime without negotiating with its peers (an elastic reset: a
+peer may be dead or gone); :func:`abort_for_reshard` makes the host plane's
+waits raise when the driver announces a new epoch; a peer's loss fails
+every pending handle with ``HorovodInternalError`` and leaves the runtime
+reading as not initialized (``is_running``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ..common import faults
 from ..common.exceptions import HorovodInternalError
 from ..common.logging_util import get_logger
 from ..common.topology import ProcessTopology, from_env
+from ..transport import control
 from ..transport.control import ControlPlane, gloo_group
 from ..transport.store import Store
 from . import flight_recorder
@@ -137,6 +147,8 @@ class HorovodGlobalState:
         self.join_event: Optional[threading.Event] = None
         # This rank's trace (HOROVOD_TIMELINE or hvd.start_timeline).
         self.timeline: Optional[timeline_mod.Timeline] = None
+        # Set by teardown(): the loop's end is then expected.
+        self._tearing_down = False
 
     # ------------------------------------------------------------------
 
@@ -200,13 +212,14 @@ class HorovodGlobalState:
         topo = self.topo
         timeout = env_mod.get_float(env_mod.HOROVOD_MESH_STARTUP_TIMEOUT,
                                     env_mod.DEFAULT_MESH_STARTUP_TIMEOUT)
-        # The membership epoch scopes the groups' store keys; it stays 0
-        # until elastic re-init (ROADMAP A6) bumps it.
-        epoch = 0
+        # The membership epoch (HOROVOD_EPOCH, set by the elastic launcher
+        # and the re-rendezvous) scopes the groups' store keys.
+        epoch = env_mod.get_epoch()
         store = Store.connect(env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR),
                               env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
                               timeout)
-        store.set("worker_started", str(topo.rank), b"1")
+        store.set("worker_started" if epoch == 0
+                  else f"worker_started.{epoch}", str(topo.rank), b"1")
         self.store = store
         self.control_group = gloo_group(store.group_store("control", epoch),
                                         topo.rank, topo.size, timeout)
@@ -261,6 +274,12 @@ class HorovodGlobalState:
                 group.shutdown()
         self.nccl_group = self.control_group = None
         self._own_groups = []
+        # Drop every other reference too: a gloo group closes its
+        # connections only when it is freed, and a peer blocked on this
+        # rank learns of its departure then.
+        self.op_manager = OperationManager()
+        if self.controller is not None:
+            self.controller.control = None
 
     def own_group(self, name: str):
         """At size > 1, a group for collectives that a caller issues itself,
@@ -272,8 +291,8 @@ class HorovodGlobalState:
         down with the runtime."""
         timeout = env_mod.get_float(env_mod.HOROVOD_MESH_STARTUP_TIMEOUT,
                                     env_mod.DEFAULT_MESH_STARTUP_TIMEOUT)
-        # The membership epoch (0 until elastic re-init) scopes the keys.
-        store = self.store.group_store(name, 0)
+        # The membership epoch scopes the keys.
+        store = self.store.group_store(name, env_mod.get_epoch())
         make = nccl_group if self.device.type == "cuda" else gloo_group
         group = make(store, self.topo.rank, self.topo.size, timeout)
         self._own_groups.append(group)
@@ -282,6 +301,7 @@ class HorovodGlobalState:
     def _build(self) -> None:
         """``_build_transport`` and ``_register_default_ops``: the groups
         (size > 1), the controller, the op chain, the finalizer."""
+        control.clear_abort()
         topo = self.topo
         if topo.size > 1:
             self._connect()
@@ -338,11 +358,17 @@ class HorovodGlobalState:
                 if elapsed < cycle:
                     self._wake.wait(cycle - elapsed)
         except BaseException as e:  # noqa: BLE001 — fail every waiter
-            log.error("background loop died: %s", e, exc_info=True)
-            self.async_error = str(e)
-            # Rank 0's abort, if it was rank 0's failure, has gone out with
-            # the cycle's verdict by now.
-            self._dump_flight_recorder(e)
+            reason = control.abort_reason()
+            if self._tearing_down or reason is not None:
+                # An elastic reset or the driver's reshard ping: expected.
+                log.info("background loop ended: %s", reason or e)
+                self.async_error = str(reason or e)
+            else:
+                log.error("background loop died: %s", e, exc_info=True)
+                self.async_error = str(e)
+                # Rank 0's abort, if it was rank 0's failure, has gone out
+                # with the cycle's verdict by now.
+                self._dump_flight_recorder(e)
             self._fail_all_pending(self.async_error)
         else:
             self._fail_all_pending("Horovod has been shut down")
@@ -638,6 +664,12 @@ class HorovodGlobalState:
 
     # ------------------------------------------------------------------
 
+    def is_running(self) -> bool:
+        """Initialized, and the background loop neither failed nor ended
+        (a peer's loss or a shutdown that a peer negotiated ends it)."""
+        return self.initialized.is_set() and self.async_error is None \
+            and not self.shutdown_complete.is_set()
+
     def shutdown(self) -> None:
         """Graceful shutdown (``horovod_shutdown``, ``operations.cc:752-778``)."""
         if not self.initialized.is_set() or self.shutdown_complete.is_set():
@@ -647,6 +679,27 @@ class HorovodGlobalState:
         self.shutdown_complete.wait(timeout=60)
         atexit.unregister(self.shutdown)
 
+    def teardown(self, reason: str = "torn down for an elastic reset") -> None:
+        """End this runtime without negotiating with its peers (the elastic
+        reset's ``_internal_reset``): a peer may be dead, gone or tearing
+        down itself.  The host plane's waits are aborted, so the loop ends
+        within a poll; the wait for its end is bounded all the same, and
+        a loop still stuck (in a device wait) is left to its daemon thread
+        with the old groups."""
+        atexit.unregister(self.shutdown)
+        if not self.initialized.is_set() or self.shutdown_complete.is_set():
+            return
+        self._tearing_down = True
+        control.abort(reason)
+        self.shutdown_requested.set()
+        self._wake.set()
+        if not self.shutdown_complete.wait(timeout=_TEARDOWN_SECS):
+            log.warning("runtime teardown: the background loop did not end "
+                        "within %.0fs; leaving it behind", _TEARDOWN_SECS)
+
+
+#: How long a teardown waits for the background loop to end.
+_TEARDOWN_SECS = 10.0
 
 _global_state = HorovodGlobalState()
 
@@ -655,9 +708,29 @@ def global_state() -> HorovodGlobalState:
     return _global_state
 
 
-def reset_global_state() -> HorovodGlobalState:
-    """Shut down and replace the runtime (``hvd.shutdown`` + re-init path)."""
+def reset_global_state(graceful: bool = True) -> HorovodGlobalState:
+    """Shut down and replace the runtime: ``hvd.shutdown`` (graceful, the
+    shutdown negotiated with every rank) or the elastic reset
+    (:meth:`HorovodGlobalState.teardown`)."""
     global _global_state
-    _global_state.shutdown()
+    if graceful:
+        _global_state.shutdown()
+    else:
+        _global_state.teardown()
     _global_state = HorovodGlobalState()
     return _global_state
+
+
+def abort_for_reshard(epoch: Optional[int] = None) -> None:
+    """The driver's reshard ping (``elastic/worker.py``): abort this rank's
+    in-flight host-plane collectives now, so that a survivor blocked on a
+    peer that is gone re-rendezvouses within a poll instead of waiting out
+    the group's timeout (``horovod_tpu/core/state.py:1205-1229``).  A ping
+    naming an epoch not newer than this process's is stale and must not
+    touch the world it runs in."""
+    if epoch is not None and epoch <= env_mod.get_epoch():
+        return
+    st = _global_state
+    if not st.initialized.is_set() or st.topo is None or st.topo.size == 1:
+        return
+    control.abort(f"elastic reshard to epoch {epoch}: re-rendezvous")

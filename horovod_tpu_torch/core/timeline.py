@@ -44,9 +44,9 @@ CLOCK_SYNC_EVENT = "clock_sync"
 #: unfused → callback) on every rank, read by ``tools/critical_path.py``.
 LIFECYCLE_ENABLED = env_mod.get_bool(env_mod.HOROVOD_TIMELINE_LIFECYCLE, True)
 
-#: Control-plane spans.  No site of the port emits them yet: their
-#: emitters come with elastic (ROADMAP A6), and ``hvd.init()`` refuses the
-#: knob when it is set on.
+#: Control-plane spans.  No site of the port emits them yet: the elastic
+#: driver's ``DRV_*`` spans and ``tools/control_path.py`` are still to come
+#: (ROADMAP A6), and ``hvd.init()`` refuses the knob when it is set on.
 CONTROL_PLANE_ENABLED = env_mod.get_bool(
     env_mod.HOROVOD_TIMELINE_CONTROL_PLANE, True)
 

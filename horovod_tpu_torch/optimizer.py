@@ -272,6 +272,20 @@ class _DistributedOptimizer:
             self.synchronize()
         return self._opt.step(closure)
 
+    def drop_in_flight(self) -> None:
+        """Forget the allreduces in flight and the counts toward
+        ``backward_passes_per_step``: after an elastic reset they belong
+        to a runtime that is gone (``elastic/torch_state.py``)."""
+        for handle, _ in self._handles.values():
+            ops._handles.discard(handle)
+        for tree in self._window:
+            for handle in tree.handles:
+                ops._handles.discard(handle)
+        self._handles.clear()
+        self._window = []
+        self._pass_queued = False
+        self._counters = {n: 0 for n in self._counters}
+
     def zero_grad(self, *args, **kwargs):
         if self._handles:
             raise HorovodInternalError(

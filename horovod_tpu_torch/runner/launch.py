@@ -17,6 +17,11 @@ Usage::
         python train.py
     python -m horovod_tpu_torch.runner.launch -np 2 -v \\
         --timeline-filename tl.json --output-filename logs python train.py
+    python -m horovod_tpu_torch.runner.launch -np 2 --min-np 1 \\
+        --host-discovery-script ./hosts.sh python train.py
+
+Any of ``--min-np``, ``--host-discovery-script`` and ``--host-discovery``
+makes the job elastic (``elastic/launcher.py``).
 """
 
 from __future__ import annotations
@@ -97,6 +102,21 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="end the job, on every rank, when a tensor has "
                         "waited this long (default 0: never)")
+    # Elastic (horovod_tpu_torch/elastic/launcher.py).
+    p.add_argument("--min-np", type=int, default=None,
+                   help="elastic: the fewest workers the job runs with")
+    p.add_argument("--max-np", type=int, default=None,
+                   help="elastic: the most workers the job grows to")
+    p.add_argument("--host-discovery-script", default=None,
+                   help="elastic: a script printing one host[:slots] per "
+                        "line, the hosts that may run workers now")
+    p.add_argument("--host-discovery", default=None,
+                   choices=["script", "tpu-metadata"],
+                   help="elastic: where the hosts come from ('script', "
+                        "--host-discovery-script; 'tpu-metadata' is the "
+                        "JAX package's TPU-VM source and is refused here)")
+    p.add_argument("--reset-limit", type=int, default=None,
+                   help="elastic: end the job after this many resets")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="the command to run on every slot")
     return p
@@ -278,6 +298,13 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         print("launch: no command given", file=sys.stderr)
         return 2
     signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    # The JAX launcher's rule (horovod_tpu/runner/launch.py:405-418): any
+    # elastic flag makes the job elastic.
+    if args.host_discovery_script or args.host_discovery \
+            or args.min_np is not None:
+        from ..elastic.launcher import launch_elastic_job
+
+        return launch_elastic_job(args, command)
     return launch_job(args, command)
 
 

@@ -7,7 +7,15 @@ the JAX package's HTTP server: the launcher hosts the server
 (:class:`StoreServer`), every worker connects a client (:meth:`Store.connect`),
 and the process groups rendezvous through it under epoch-scoped prefixes
 (:meth:`Store.group_store`), as Horovod's own GlooController does.  The
-HTTP server's journal and the elastic membership wait for the elastic slice.
+elastic driver and workers exchange their slot tables, acks, leases and
+requests through it (:meth:`Store.batch`).  The JAX package's journaled
+HTTP server, which survives a restart, has no counterpart: the store lives
+in the launcher's process.
+
+A client's ``set`` and ``batch`` are the ``store.put`` fault site and its
+``get`` is ``rendezvous.get`` (``common/faults.py``), where the JAX
+package's HTTP client has them; the launcher's own handle on its server
+injects nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Dict, List, Optional
 
 import torch.distributed as dist
 
+from ..common import faults
+
 
 def _timedelta(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=seconds)
@@ -26,8 +36,9 @@ def _timedelta(seconds: float) -> datetime.timedelta:
 class Store:
     """Scope-prefixed keys (``<scope>/<key>``) over one ``TCPStore``."""
 
-    def __init__(self, tcp_store: "dist.TCPStore"):
+    def __init__(self, tcp_store: "dist.TCPStore", injects: bool = True):
         self.tcp = tcp_store
+        self._injects = injects
 
     @staticmethod
     def connect(addr: str, port: int, timeout: float) -> "Store":
@@ -41,12 +52,53 @@ class Store:
         return f"{scope}/{key}"
 
     def set(self, scope: str, key: str, value: bytes) -> None:
+        if faults.ACTIVE and self._injects:
+            faults.inject("store.put")
         self.tcp.set(self._key(scope, key), value)
 
     def get(self, scope: str, key: str) -> Optional[bytes]:
         """Non-blocking read; None when absent."""
+        if faults.ACTIVE and self._injects:
+            faults.inject("rendezvous.get")
         k = self._key(scope, key)
         return self.tcp.get(k) if self.tcp.check([k]) else None
+
+    def delete(self, scope: str, key: str) -> None:
+        """Remove a key (absent or not)."""
+        self.tcp.delete_key(self._key(scope, key))
+
+    def batch(self, ops: List[tuple]) -> List[object]:
+        """An ordered list of ``("set", scope, key, value)`` and ``("get",
+        scope, key)`` in one exchange with the server, with the JAX
+        package's semantics (``horovod_tpu/transport/store.py:83-235``): a
+        get reads the batch's own earlier sets, else the store (None when
+        absent: ``TCPStore.get`` would block, so each key is checked
+        first); every set lands at the end in one ``multi_set``, a single
+        server command, so that no reader sees a part of them.  Returns
+        True per set and the value (or None) per get."""
+        if not ops:
+            return []
+        if faults.ACTIVE and self._injects:
+            faults.inject("store.put")
+        overlay: Dict[str, bytes] = {}
+        results: List[object] = []
+        for op in ops:
+            kind = op[0]
+            if kind == "set":
+                overlay[self._key(op[1], op[2])] = bytes(op[3])
+                results.append(True)
+            elif kind == "get":
+                k = self._key(op[1], op[2])
+                if k in overlay:
+                    results.append(overlay[k])
+                else:
+                    results.append(self.tcp.get(k) if self.tcp.check([k])
+                                   else None)
+            else:
+                raise ValueError(f"unknown store batch op {kind!r}")
+        if overlay:
+            self.tcp.multi_set(list(overlay), list(overlay.values()))
+        return results
 
     def wait(self, scope: str, keys: List[str],
              timeout: float = 60.0) -> Dict[str, bytes]:
@@ -86,7 +138,7 @@ class StoreServer:
             self.tcp = dist.TCPStore(socket.gethostname(), 0, None, True,
                                      wait_for_workers=False)
         self.port = self.tcp.port
-        self.store = Store(self.tcp)
+        self.store = Store(self.tcp, injects=False)
 
     def close(self) -> None:
         self.store = None

@@ -40,6 +40,7 @@ import torch.utils._pytree as pytree
 
 from . import ops
 from .common.env import HOROVOD_DATA_PLANE, PLANE_NCCL
+from .common.exceptions import HorovodInternalError
 from .compression import Compression
 from .core.state import global_state
 from .kernels import conv_bn_stats
@@ -217,12 +218,21 @@ class OverlappedTrainStep:
         self._static: List[torch.Tensor] = []
         self._batch_spec = None
         self._static_loss = None
+        # The runtime the step's group and graph belong to: an elastic
+        # reset tears it down.
+        self._runtime = None
         #: Replays so far, and the kernels' launches recorded at capture.
         self.replays = 0
         self.captured_launches: Dict[str, int] = {}
 
     def _context(self):
         state = global_state()
+        if self._runtime is not None and state is not self._runtime:
+            raise HorovodInternalError(
+                "make_overlapped_train_step: this step's process group and "
+                "CUDA graph belong to a runtime that was torn down (an "
+                "elastic reset, or hvd.shutdown()); build a new step for "
+                "the new world")
         state._check_initialized()
         if self._synced and state.topo.size > 1:
             raise RuntimeError(
@@ -325,11 +335,13 @@ class OverlappedTrainStep:
             self._check(leaves)
         if self._group is None and state.topo.size > 1:
             self._group = state.own_group(f"wfbp.step{next(_step_ids)}")
+            self._runtime = state
         if state.device.type != "cuda":
             self._opt.zero_grad(set_to_none=True)
             return self._body(state, batch)
         if self._graph is None:
             self._batch_spec = spec
+            self._runtime = state
             return self._capture(state, leaves)
         if spec != self._batch_spec or any(
                 l.shape != s.shape or l.dtype != s.dtype

@@ -354,7 +354,12 @@ class _FakeGroup:
 
     allreduce = broadcast = allgather = alltoall_base = _call
 
-    def wait(self):
+    # A c10d Work's interface: the host plane waits in slices that an
+    # elastic abort can interrupt (transport/control.py::wait).
+    def wait(self, timeout=None):
+        return True
+
+    def is_completed(self):
         return True
 
 

@@ -6,8 +6,8 @@ In one process, no job:
   same fields for the same clauses, a ``ValueError`` from both on the bad
   clauses of ``tests/test_fault_injection.py``
   (``TestFaultSpec.test_grammar_errors_are_loud``), and the sites whose
-  layer the port lacks (the transports, the rendezvous store, the elastic
-  driver) refused by the port alone, naming the slice that brings them;
+  layer the port lacks (the transports, the journaled rendezvous server's
+  handler) refused by the port alone, naming the item that brings them;
 - the ``nth``/``after``/``rank`` firing sequences of both modules on the
   same call sequences, and ``inject_deferred``'s delays;
 - ``HOROVOD_FAULT_SPEC`` read when the package is imported (a subprocess);
@@ -16,7 +16,8 @@ In one process, no job:
   ``controller.tally``'s parked tally and its replay against the JAX
   controller's, ``worker.spawn`` through the launcher's spawn; each fire
   counted in the metrics and the flight recorder.  ``ckpt.save`` is held
-  in ``test_torch_checkpoint.py``.
+  in ``test_torch_checkpoint.py``; ``store.put``, ``rendezvous.get`` and
+  ``driver.tick`` in ``test_torch_elastic_driver.py``.
 """
 
 from __future__ import annotations
@@ -137,7 +138,8 @@ def test_the_sites_and_actions_are_the_jax_lists():
     wired = set(faults.SITES) - set(faults.MISSING_SITES)
     assert wired == {"enqueue.collective", "dispatch.collective",
                      "controller.negotiate", "controller.tally",
-                     "worker.spawn", "ckpt.save"}
+                     "worker.spawn", "ckpt.save", "store.put",
+                     "rendezvous.get", "driver.tick"}
 
 
 # ---------------------------------------------------------------------------

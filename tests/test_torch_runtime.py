@@ -313,7 +313,11 @@ import profile_step
 import adasum_bert_pretraining
 import pytorch_imagenet_resnet50
 import pytorch_synthetic_benchmark
+import pytorch_resnet50_elastic
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.elastic import (
+    constants, discovery, driver, launcher, registration, rendezvous_client,
+    state, torch_state, worker)
 from horovod_tpu_torch.tools import critical_path, trace_merge
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.training import train_step
@@ -334,6 +338,14 @@ opt = hvd.DistributedOptimizer(torch.optim.AdamW(bert.parameters()),
                                named_parameters=bert.named_parameters())
 tokens = torch.randint(0, 128, (2, 16))
 assert torch.isfinite(train_step(bert, opt, {{"x": tokens, "y": tokens}}))
+# The elastic state that chip_smoke.py --worker elastic commits each step.
+elastic = hvd.elastic.TorchState(model, opt, batch=0)
+elastic.batch = 1
+elastic.commit()
+elastic.batch = 2
+elastic.restore()
+assert elastic.batch == 1
+chip_smoke.elastic_hash(model, opt, elastic.batch)
 hvd.shutdown()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",

@@ -1,4 +1,9 @@
-"""Shared fixture of the ``tests/test_torch_*.py`` files of the PyTorch port."""
+"""Shared fixture and helper of the ``tests/test_torch_*.py`` files of the
+PyTorch port."""
+
+import os
+import signal
+import subprocess
 
 import pytest
 import torch
@@ -13,3 +18,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
+
+
+def run_job(cmd, timeout: float, **kwargs) -> subprocess.CompletedProcess:
+    """``subprocess.run(cmd, capture_output=True, text=True,
+    timeout=timeout)`` for a launcher, in a session of its own: the whole
+    process group (the launcher and every worker it spawned) is killed once
+    the launcher ends or times out, so that no worker outlives the test."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, **kwargs)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if proc.returncode is None:
+            proc.communicate()
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
