@@ -223,9 +223,34 @@ Phases, in order; any failure raises and the exit code is not 0:
     (deterministic cuDNN) must give the live step 3's bits; ``restore``
     of a missing path raises ``CheckpointNotFoundError``.  Prints the save
     and restore seconds and MB/s.
+23. Elastic ResNet-50 at np=2 on the one card (``--worker elastic DIR``)
+    through ``--min-np 1 --max-np 2 --host-discovery-script``: sizes 2, 1,
+    2, 1 (a host dropped, added back, a rank SIGKILLed), 36 B8 launches per
+    step, equal state hashes after every sync, the first size-1 step the
+    bits of a step without the runtime, the survivor back at its last
+    commit; prints each change's recovery split.
+24. The same job through a supervised rendezvous server (``--worker
+    outage DIR``): ``python -m horovod_tpu_torch.runner.rendezvous`` with a
+    journal under ``_runs/`` and its own trace, the launcher attached with
+    ``HOROVOD_RENDEZVOUS_EXTERNAL``, the timelines and the control-plane
+    spans on, renewals every ``OUTAGE_RENEW_SECS``.  Once both ranks have
+    taken ``OUTAGE_PRE_STEPS`` steps the phase SIGKILLs the server, keeps
+    it down ``OUTAGE_SECS`` while the ranks train, starts it again on its
+    port over its journal, and, after two more renewal periods, drops
+    ``127.0.0.1`` from the hosts file (a shrink); ``OUTAGE_SIZE1_STEPS``
+    steps at size 1 end the job.  Gates: exit 0; one process per host (no
+    worker shed); every step before the shrink at size 2 in epoch 0 (no
+    epoch for the outage); the restarted server's replayed epoch 0 and the
+    shrink at epoch 1; failed renewals on both ranks during the outage;
+    36 B8 launches per step and the same parameters on both ranks; one
+    ``CHURN_EVENT`` in the driver's trace, whose ``control_path`` phases
+    sum to its coverage within 1%.  Prints the outage's seconds, the
+    replay's ms, ms per step before, during and after the outage, the
+    shrink's split, the journal's bytes and durable writes per second.
 
 The last two lines are the kernels' JSON summary (B8, whose launches are
-phase 5's and phase 21's synced steps' on both ranks, the three flash
+phase 5's, phase 21's synced steps' on both ranks and phases 23's and
+24's steps' on every process, the three flash
 kernels and the Adasum kernels, whose launches are phase 13's and whose
 times are the sums over phase 13's windows per step and rank, averaged
 over its ranks and steps) and
@@ -234,8 +259,9 @@ over its ranks and steps) and
 ``python3 chip_smoke.py --worker np2-resnet DIR``, ``--worker np2-bert DIR``,
 ``--worker np2-bert-adasum DIR``, ``--worker np2-stall DIR``, ``--worker
 np2-overlap DIR``, ``--worker nccl-np2``, ``--worker example SCRIPT
-ARGS...`` and ``--worker np2-syncbn DIR`` are the launched workers of
-phases 11, 12, 13, 14, 18, 10, 20 and 21.
+ARGS...``, ``--worker np2-syncbn DIR``, ``--worker elastic DIR`` and
+``--worker outage DIR`` are the launched workers of phases 11, 12, 13, 14,
+18, 10, 20, 21, 23 and 24.
 """
 
 from __future__ import annotations
@@ -249,7 +275,9 @@ import math
 import os
 import re
 import runpy
+import secrets
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -281,7 +309,8 @@ from horovod_tpu_torch.kernels import build, conv_bn_stats
 from horovod_tpu_torch.kernels import flash_attention as fa
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.training import cross_entropy_loss, train_step
-from horovod_tpu_torch.tools import critical_path, trace_merge
+from horovod_tpu_torch.tools import control_path, critical_path, trace_merge
+from horovod_tpu_torch.transport.store import HTTPStoreClient
 
 BATCH = 128
 IMAGE = 224
@@ -519,6 +548,16 @@ ELASTIC_BATCHES = 9
 ELASTIC_SIZES = [2, 2, 2, 1, 1, 2, 2, 1, 1]
 # How long a paused worker waits for the driver's ping.
 ELASTIC_PAUSE_SECS = 120
+
+# Phase 24: phase 23's job through a supervised rendezvous server.  The
+# lease renewals' period (HOROVOD_METRICS_PUSH_SECS); the steps each rank
+# takes before the server is SIGKILLed; how long it stays down (at least
+# two renewal periods, under the 15 s lease timeout); the steps at size 1
+# after the shrink.
+OUTAGE_RENEW_SECS = 1.0
+OUTAGE_PRE_STEPS = 3
+OUTAGE_SECS = 3 * OUTAGE_RENEW_SECS
+OUTAGE_SIZE1_STEPS = 2
 
 # The op spans of the trace, and critical_path's phases chip_smoke prints.
 OP_SPANS = ("ALLREDUCE", "ADASUM", "BROADCAST", "ALLGATHER", "ALLTOALL")
@@ -3206,6 +3245,281 @@ def elastic_gates(logs: dict, seconds: float, card_line: str) -> dict:
             "launches": sum(e["launches"] for e in steps)}
 
 
+def outage_worker(out_dir: str) -> None:
+    """One process of phase 24's job (module docstring): phase 23's step,
+    taken until the phase writes ``out_dir/stop``; each step's record holds
+    the lease renewals' failures so far."""
+    from horovod_tpu_torch.core import metrics
+    from horovod_tpu_torch.elastic import state as elastic_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = Path(out_dir)
+    log_path = out / f"{os.environ['HOROVOD_HOSTNAME']}.{os.getpid()}.jsonl"
+
+    def record(**fields) -> None:
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"t": time.time(), **fields}) + "\n")
+
+    hvd.init(device="cuda:0")
+    dev = hvd.device()
+    model = resnet.ResNet50(
+        num_classes=1000, dtype=torch.bfloat16, fuse_conv1x1_bn=True,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    opt = hvd.DistributedOptimizer(inner,
+                                   named_parameters=model.named_parameters())
+    state = hvd.elastic.TorchState(model, opt, batch=0)
+
+    @hvd.elastic.run
+    def train(state):
+        record(kind="enter", epoch=int(os.environ["HOROVOD_EPOCH"]),
+               rank=hvd.rank(), size=hvd.size(), batch=state.batch,
+               hash=elastic_hash(model, inner, state.batch),
+               resets=elastic_state.reset_log)
+        while not (out / "stop").exists():
+            batch = elastic_batch(state.batch, hvd.rank(), dev)
+            torch.cuda.synchronize()
+            launches = conv_bn_stats.LAUNCHES
+            start = time.time()
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss = cross_entropy_loss(model(batch["x"]), batch["y"])
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            end = time.time()
+            record(kind="step", epoch=int(os.environ["HOROVOD_EPOCH"]),
+                   rank=hvd.rank(), size=hvd.size(), batch=state.batch,
+                   loss=float(loss), start=start, end=end,
+                   launches=conv_bn_stats.LAUNCHES - launches,
+                   params=_raw_sha(p for _, p in
+                                   sorted(model.named_parameters())),
+                   failures=metrics.registry.get_counter(
+                       "lease_renew_failures_total"))
+            state.batch += 1
+            state.commit()
+
+    train(state)
+    record(kind="done", rank=hvd.rank(), size=hvd.size())
+    hvd.shutdown()
+
+
+def serve_rendezvous(port: int, out: Path, n: int, key: str):
+    """The supervised rendezvous server, incarnation ``n``, on ``port``
+    over ``out/journal``, writing its trace to ``out/server<n>.json``."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.rendezvous",
+         "--bind", "127.0.0.1", "--port", str(port),
+         "--journal-dir", str(out / "journal")],
+        cwd=str(REPO), text=True, stdout=subprocess.PIPE,
+        env={**os.environ, "HOROVOD_SECRET_KEY": key,
+             "HOROVOD_SERVER_TIMELINE": str(out / f"server{n}.json"),
+             "HOROVOD_TIMELINE_CONTROL_PLANE": "1"})
+    line = proc.stdout.readline()
+    if not line.startswith("rendezvous serving on port"):
+        proc.kill()
+        raise AssertionError(f"the rendezvous server did not start: {line!r}")
+    return proc
+
+
+def outage_logs(out: Path) -> dict:
+    return {p.name: [json.loads(line) for line in p.read_text().splitlines()]
+            for p in sorted(out.glob("*.jsonl"))}
+
+
+def outage_steps(logs: dict, host: str) -> list:
+    return [e for name, log in logs.items() if name.startswith(host + ".")
+            for e in log if e["kind"] == "step"]
+
+
+def outage_wait(out: Path, what: str, cond, deadline: float) -> None:
+    while not cond(outage_logs(out)):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 24 timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def phase_outage(card_line: str) -> dict:
+    """Phase 24 (module docstring): the job, the kill, the restart and the
+    shrink, then the gates from the processes' records and traces."""
+    (REPO / "_runs").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="outage.",
+                                     dir=REPO / "_runs") as out_dir:
+        out = Path(out_dir)
+        hosts = out / "hosts.txt"
+        hosts.write_text(ELASTIC_BOTH)
+        script = out / "discover.sh"
+        script.write_text(f"#!/bin/sh\ncat {hosts}\n")
+        script.chmod(0o755)
+        key = secrets.token_hex(32)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        server = serve_rendezvous(port, out, 0, key)
+        marks = {}
+        t0 = time.perf_counter()
+        job_out, job_err = open(out / "job.out", "w"), open(out / "job.err",
+                                                            "w")
+        job = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+             "2", "--min-np", "1", "--max-np", "2",
+             "--host-discovery-script", str(script), sys.executable,
+             str(REPO / "chip_smoke.py"), "--worker", "outage", out_dir],
+            cwd=str(REPO), text=True, stdout=job_out, stderr=job_err,
+            start_new_session=True,
+            env={**os.environ,
+                 "HOROVOD_RENDEZVOUS_EXTERNAL": f"127.0.0.1:{port}",
+                 "HOROVOD_SECRET_KEY": key,
+                 "HOROVOD_METRICS_PUSH_SECS": str(OUTAGE_RENEW_SECS),
+                 "HOROVOD_TIMELINE": str(out / "tl.json"),
+                 "HOROVOD_TIMELINE_CONTROL_PLANE": "1"})
+        deadline = time.monotonic() + LAUNCH_TIMEOUT
+        try:
+            outage_wait(out, "both ranks training", lambda logs: all(
+                len(outage_steps(logs, h)) >= OUTAGE_PRE_STEPS
+                for h in ("localhost", "127.0.0.1")), deadline)
+            marks["kill"] = time.time()
+            server.send_signal(signal.SIGKILL)
+            server.wait(timeout=30)
+            time.sleep(OUTAGE_SECS)
+            server = serve_rendezvous(port, out, 1, key)
+            marks["restart"] = time.time()
+            os.environ["HOROVOD_SECRET_KEY"] = key
+            try:
+                marks["replayed_epoch"] = int(HTTPStoreClient(
+                    "127.0.0.1", port).get("driver", "epoch"))
+            finally:
+                del os.environ["HOROVOD_SECRET_KEY"]
+            outage_wait(out, "steps after the restart", lambda logs: all(
+                any(e["start"] > marks["restart"] + 2 * OUTAGE_RENEW_SECS
+                    for e in outage_steps(logs, h))
+                for h in ("localhost", "127.0.0.1")), deadline)
+            marks["shrink"] = time.time()
+            hosts.write_text("localhost:1\n")
+            outage_wait(out, "the steps at size 1", lambda logs: sum(
+                e["size"] == 1 for e in outage_steps(logs, "localhost"))
+                >= OUTAGE_SIZE1_STEPS, deadline)
+            (out / "stop").write_text("")
+            code = job.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            try:
+                os.killpg(job.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            # SIGTERM: the restarted server closes its trace.  The killed
+            # one's trace is lost with its unwritten buffer.
+            server.terminate()
+            server.wait(timeout=30)
+            job.wait()
+            job_out.close()
+            job_err.close()
+        seconds = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(
+                f"phase 24's job failed with exit {code}:\n"
+                f"{(out / 'job.out').read_text()[-6000:]}\n"
+                f"{(out / 'job.err').read_text()[-6000:]}")
+        logs = outage_logs(out)
+        traces = {name: trace_merge.load_trace(str(out / name))
+                  for name in ("server1.json", "tl.json.driver", "tl.json")}
+        cp = control_path.analyze(trace_merge.merge(list(traces.values())))
+        journal_bytes = sum(f.stat().st_size
+                            for f in (out / "journal").iterdir())
+    return outage_gates(logs, traces, cp, marks, journal_bytes, seconds)
+
+
+def outage_gates(logs: dict, traces: dict, cp: dict, marks: dict,
+                 journal_bytes: int, seconds: float) -> dict:
+    survivor = [e for name, log in logs.items()
+                if name.startswith("localhost.") for e in log]
+    steps = {h: outage_steps(logs, h) for h in ("localhost", "127.0.0.1")}
+    # One process per host: no worker was shed and spawned again.
+    assert sorted(name.rsplit(".", 2)[0] for name in logs) == \
+        ["127.0.0.1", "localhost"], sorted(logs)
+    # No epoch change for the outage: both ranks at size 2 in epoch 0
+    # until the shrink; then the survivor alone, at the replayed epoch + 1.
+    for host, own in steps.items():
+        before = [e for e in own if e["start"] < marks["shrink"]]
+        assert before and {(e["size"], e["epoch"]) for e in before} == \
+            {(2, 0)}, (host, before)
+    enters = [e for e in survivor if e["kind"] == "enter"]
+    assert [e["epoch"] for e in enters] == \
+        [0, marks["replayed_epoch"] + 1], enters
+    assert enters[1]["t"] > marks["shrink"], (enters, marks)
+    assert marks["replayed_epoch"] == 0, marks
+    after = [e for e in steps["localhost"] if e["size"] == 1]
+    assert {e["epoch"] for e in after} == {1}, after
+    # The renewals failed during the outage, on both ranks.
+    for host, own in steps.items():
+        during = [e["failures"] for e in own
+                  if marks["restart"] < e["start"] < marks["shrink"]]
+        assert during and max(during) > 0, (host, during)
+    # 36 B8 launches per step; the same parameters on both ranks at every
+    # step at size 2, and the same state after the sync at the start.
+    all_steps = steps["localhost"] + steps["127.0.0.1"]
+    for e in all_steps:
+        assert e["launches"] == LAUNCHES_PER_STEP, e
+        assert math.isfinite(e["loss"]), e
+    ours = {e["batch"]: e["params"] for e in steps["localhost"]
+            if e["size"] == 2}
+    theirs = {e["batch"]: e["params"] for e in steps["127.0.0.1"]}
+    assert set(ours) == set(theirs) and all(
+        ours[b] == theirs[b] for b in ours), (ours, theirs)
+    first = [e for log in logs.values() for e in log
+             if e["kind"] == "enter" and e["epoch"] == 0]
+    assert len(first) == 2 and first[0]["hash"] == first[1]["hash"], first
+    # The driver's trace: one CHURN_EVENT per epoch change; control_path's
+    # phases sum to its coverage of the window.
+    churn = [e for e in traces["tl.json.driver"]
+             if e.get("name") == "CHURN_EVENT"]
+    assert [e["args"]["epoch"] for e in churn] == [1], churn
+    assert cp["event_count"] == 1, cp
+    event = cp["events"][0]
+    covered = sum(event["phases_us"].values())
+    assert abs(covered - event["coverage"] * event["duration_us"]) <= \
+        0.01 * event["duration_us"] + 1.0, event
+    server = traces["server1.json"]
+    replay = [e for e in server if e.get("name") == "JR_REPLAY"]
+    fsyncs = [e for e in server if e.get("name") == "JR_FSYNC"]
+    assert len(replay) == 1 and fsyncs, (replay, len(fsyncs))
+    span = [e["ts"] for e in server if "ts" in e]
+    reset = enters[1]["resets"][-1]
+    done = after[0]
+
+    def ms_per_step(lo, hi):
+        return [round(1e3 * (e["end"] - e["start"]), 1)
+                for e in steps["localhost"] if lo <= e["start"] < hi]
+
+    return {
+        "seconds": seconds,
+        "outage_s": marks["restart"] - marks["kill"],
+        "replay_ms": replay[0]["dur"] / 1e3,
+        "ms_before": ms_per_step(0, marks["kill"]),
+        "ms_across": ms_per_step(marks["kill"], marks["restart"]),
+        "ms_after": ms_per_step(marks["restart"], marks["shrink"]),
+        "shrink": {
+            "total_s": done["end"] - marks["shrink"],
+            "notice_s": reset["caught"] - marks["shrink"],
+            "teardown_s": reset["torn_down"] - reset["caught"],
+            "wait_epoch_s": reset["adopted"] - reset["torn_down"],
+            "group_build_s": reset["initialized"] - reset["adopted"],
+            "sync_s": reset["synced"] - reset["initialized"],
+            "first_step_s": done["end"] - done["start"]},
+        "churn_ms": event["duration_us"] / 1e3,
+        "churn_phases_ms": {k: v / 1e3 for k, v in
+                            event["phases_us"].items()},
+        "churn_unattributed_ms": event["unattributed_us"] / 1e3,
+        "coverage": event["coverage"],
+        "journal_bytes": journal_bytes,
+        "fsync_ms": sum(e["dur"] for e in fsyncs) / 1e3 / len(fsyncs),
+        "writes_per_s": len(fsyncs) / ((max(span) - min(span)) / 1e6),
+        "launches": sum(e["launches"] for e in all_steps),
+        "steps": len(all_steps),
+    }
+
+
 def flip_payload_byte(snapshot: str) -> None:
     path = os.path.join(snapshot, checkpoint.PAYLOAD_FILE)
     with open(path, "r+b") as f:
@@ -3331,6 +3645,8 @@ def main() -> int:
             np2_syncbn_worker(sys.argv[3])
         elif sys.argv[2:3] == ["elastic"]:
             elastic_worker(sys.argv[3])
+        elif sys.argv[2:3] == ["outage"]:
+            outage_worker(sys.argv[3])
         else:
             raise SystemExit(f"unknown worker {sys.argv[2:]}")
         return 0
@@ -3564,6 +3880,34 @@ def main() -> int:
           f"{[round(v, 1) for v in elastic['ms'][2]]} [{card_line}]",
           flush=True)
 
+    torch.cuda.empty_cache()
+    outage = phase_outage(card_line)
+    sh = outage["shrink"]
+    print(f"outage: np=2 elastic ResNet-50 through the supervised "
+          f"rendezvous server in {outage['seconds']:.1f}s (launch "
+          f"included): the server SIGKILLed and down "
+          f"{outage['outage_s']:.3f}s, restarted on its port over its "
+          f"journal (JR_REPLAY {outage['replay_ms']:.3f} ms), no epoch "
+          f"change for it, renewals failed and no worker shed, then a "
+          f"shrink at the replayed epoch + 1; {outage['launches']} B8 "
+          f"launches in {outage['steps']} steps, 36 per step; ms per step "
+          f"before the kill {outage['ms_before']}, while down "
+          f"{outage['ms_across']}, after the restart {outage['ms_after']} "
+          f"[{card_line}]", flush=True)
+    print(f"outage shrink: {sh['total_s']:.3f}s from the hosts file's "
+          f"change to the end of the first step at size 1 = notice "
+          f"{sh['notice_s']:.3f} + teardown {sh['teardown_s']:.3f} + "
+          f"waiting for the epoch {sh['wait_epoch_s']:.3f} + group build "
+          f"{sh['group_build_s']:.3f} + state sync {sh['sync_s']:.3f} + "
+          f"first step {sh['first_step_s']:.3f}; the driver's CHURN_EVENT "
+          f"{outage['churn_ms']:.3f} ms, by control_path "
+          f"{ {k: round(v, 3) for k, v in outage['churn_phases_ms'].items()} } "
+          f"+ unattributed {outage['churn_unattributed_ms']:.3f} ms "
+          f"(coverage {outage['coverage']}); journal "
+          f"{outage['journal_bytes']} bytes, {outage['writes_per_s']:.2f} "
+          f"durable writes/s after the restart, JR_FSYNC "
+          f"{outage['fsync_ms']:.3f} ms each [{card_line}]", flush=True)
+
     timed = [r for r in rows if "ms" in r]
 
     def per_step(key):
@@ -3576,8 +3920,9 @@ def main() -> int:
         "source": "horovod_tpu_torch/csrc/matmul_bn_stats.cu",
         "replaces": "horovod_tpu/kernels/conv_bn_stats.py:90",
         # The np=1 main path's, phase 21's synced steps' on both ranks and
-        # phase 23's elastic steps' on every process.
-        "launches": launches + syncbn["launches"] + elastic["launches"],
+        # phases 23's and 24's elastic steps' on every process.
+        "launches": launches + syncbn["launches"] + elastic["launches"]
+        + outage["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # Per training step: each shape's time times its launches per step.
         "ms": per_step("ms"),

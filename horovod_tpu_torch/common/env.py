@@ -19,8 +19,15 @@ HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
 HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
 
 # -- rendezvous / control plane (set by the launcher) --
+# The HTTP rendezvous server (runner/rendezvous.py): the elastic scopes,
+# the leases and ``GET /clock``.
 HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
 HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+# The launcher's ``TCPStore`` (transport/store.py): the process groups'
+# rendezvous and the card table, which need c10d's blocking waits.  Only
+# the launcher sets them.
+HOROVOD_TORCH_STORE_ADDR = "HOROVOD_TORCH_STORE_ADDR"
+HOROVOD_TORCH_STORE_PORT = "HOROVOD_TORCH_STORE_PORT"
 # The job's key for the signed elastic notify pings (common/secret.py).
 HOROVOD_SECRET_KEY = "HOROVOD_SECRET_KEY"
 # Bring-up budget in seconds: store connection, the control group's
@@ -87,8 +94,20 @@ HOROVOD_LEASE_TIMEOUT_SECS = "HOROVOD_LEASE_TIMEOUT_SECS"
 HOROVOD_RESHARD = "HOROVOD_RESHARD"
 # Seconds a blacklisted host stays out; 0, the default, is for good.
 HOROVOD_BLACKLIST_COOLDOWN_SECS = "HOROVOD_BLACKLIST_COOLDOWN_SECS"
-# The JAX launcher's journaled external rendezvous server: refused here.
+# host:port of a rendezvous server that a supervisor runs (``python -m
+# horovod_tpu_torch.runner.rendezvous``): the launchers attach to it
+# instead of hosting one.
 HOROVOD_RENDEZVOUS_EXTERNAL = "HOROVOD_RENDEZVOUS_EXTERNAL"
+# The server's write-ahead journal and snapshots (transport/journal.py);
+# unset: no journal.  FSYNC ("1"/"0", default on) syncs each record;
+# SNAPSHOT_EVERY is the ops between two compactions.
+HOROVOD_RENDEZVOUS_JOURNAL_DIR = "HOROVOD_RENDEZVOUS_JOURNAL_DIR"
+HOROVOD_RENDEZVOUS_JOURNAL_FSYNC = "HOROVOD_RENDEZVOUS_JOURNAL_FSYNC"
+HOROVOD_RENDEZVOUS_SNAPSHOT_EVERY = "HOROVOD_RENDEZVOUS_SNAPSHOT_EVERY"
+# ``POST /batch`` ("1"/"0", default on; off on the server answers 404 and
+# the client falls back to one request per op), and its ops per request.
+HOROVOD_RENDEZVOUS_BATCH = "HOROVOD_RENDEZVOUS_BATCH"
+HOROVOD_RENDEZVOUS_BATCH_MAX_OPS = "HOROVOD_RENDEZVOUS_BATCH_MAX_OPS"
 # Seconds between two renewals of a worker's lease, each with its metrics
 # snapshot (elastic/rendezvous_client.py); 0 turns the renewals off.
 HOROVOD_METRICS_PUSH_SECS = "HOROVOD_METRICS_PUSH_SECS"
@@ -103,13 +122,17 @@ HOROVOD_LOG_HIDE_TIMESTAMP = "HOROVOD_LOG_HIDE_TIMESTAMP"
 HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
 HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
 HOROVOD_TIMELINE_LIFECYCLE = "HOROVOD_TIMELINE_LIFECYCLE"
+# The control-plane spans ("1"/"0", default on): RVC_* store round trips,
+# the driver's DRV_* and CHURN_EVENT, the server's RV_* and JR_*.
+HOROVOD_TIMELINE_CONTROL_PLANE = "HOROVOD_TIMELINE_CONTROL_PLANE"
+# The rendezvous server's own trace (its pid is SERVER_TRACE_PID).
+HOROVOD_SERVER_TIMELINE = "HOROVOD_SERVER_TIMELINE"
 
 # -- knobs of the JAX runtime that this port does not act on.  A job that
 # sets one of the first group gets an error at ``hvd.init()`` naming the
-# slice that brings its feature (ROADMAP.md A6, A7, A9), instead of a run
+# slice that brings its feature (ROADMAP.md A7, A8, A9), instead of a run
 # without it; the second group only tunes machinery the port does not
 # have, and gets one warning. --
-HOROVOD_TIMELINE_CONTROL_PLANE = "HOROVOD_TIMELINE_CONTROL_PLANE"
 HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
 HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
 HOROVOD_AUTOTUNE_CODEC = "HOROVOD_AUTOTUNE_CODEC"
@@ -130,6 +153,38 @@ HOROVOD_JAX_COORDINATOR = "HOROVOD_JAX_COORDINATOR"
 HOROVOD_RING_SEGMENT_BYTES = "HOROVOD_RING_SEGMENT_BYTES"
 HOROVOD_NUM_FINALIZER_THREADS = "HOROVOD_NUM_FINALIZER_THREADS"
 HOROVOD_PIPELINE_DISPATCH = "HOROVOD_PIPELINE_DISPATCH"
+HOROVOD_LOCK_DEBUG = "HOROVOD_LOCK_DEBUG"
+HOROVOD_LOCK_DEBUG_SLOW_SECS = "HOROVOD_LOCK_DEBUG_SLOW_SECS"
+HOROVOD_SPARK_INLINE_MAX_ROWS = "HOROVOD_SPARK_INLINE_MAX_ROWS"
+HOROVOD_TPU_MESH_AXES = "HOROVOD_TPU_MESH_AXES"
+HOROVOD_TRANSPORT = "HOROVOD_TRANSPORT"
+HOROVOD_WIRE_CRC = "HOROVOD_WIRE_CRC"
+HOROVOD_WIRE_CRC_SHADOW = "HOROVOD_WIRE_CRC_SHADOW"
+HOROVOD_WIRE_DIGEST = "HOROVOD_WIRE_DIGEST"
+HOROVOD_SHM_CRC = "HOROVOD_SHM_CRC"
+HOROVOD_FANIN = "HOROVOD_FANIN"
+HOROVOD_FANIN_DIR = "HOROVOD_FANIN_DIR"
+HOROVOD_TCP_PROGRESS_DEADLINE_SECS = "HOROVOD_TCP_PROGRESS_DEADLINE_SECS"
+HOROVOD_SHM_RING_BYTES = "HOROVOD_SHM_RING_BYTES"
+HOROVOD_SHM_HOSTID = "HOROVOD_SHM_HOSTID"
+HOROVOD_DISABLE_NATIVE = "HOROVOD_DISABLE_NATIVE"
+HOROVOD_FLASH_ATTENTION = "HOROVOD_FLASH_ATTENTION"
+HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = \
+    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = \
+    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+HOROVOD_CONTROLLER = "HOROVOD_CONTROLLER"
+HOROVOD_CPU_OPERATIONS = "HOROVOD_CPU_OPERATIONS"
+HOROVOD_ADASUM_MPI_CHUNK_SIZE = "HOROVOD_ADASUM_MPI_CHUNK_SIZE"
+HOROVOD_XLA_BUCKET_BYTES = "HOROVOD_XLA_BUCKET_BYTES"
+
+#: Names that the JAX package reads only in tooling that no slice of the
+#: port brings: its cluster simulator (``horovod_tpu/sim/``) and the
+#: TPU-VM metadata discovery (on a GPU host the discovery script takes
+#: its role).  The port neither reads nor checks them.
+JAX_TOOLING_ONLY_KNOBS = ("HOROVOD_SIM_LATENCY_MS", "HOROVOD_SIM_JITTER_MS",
+                          "HOROVOD_SIM_BANDWIDTH_MBS", "HOROVOD_SIM_SEED",
+                          "HOROVOD_TPU_METADATA_URL")
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -144,6 +199,8 @@ DEFAULT_FLIGHT_RECORDER_EVENTS = 512
 DEFAULT_MESH_STARTUP_TIMEOUT = 60.0
 DEFAULT_METRICS_PUSH_SECS = 5.0
 DEFAULT_LEASE_TIMEOUT_SECS = 15.0
+DEFAULT_RENDEZVOUS_SNAPSHOT_EVERY = 512
+DEFAULT_RENDEZVOUS_BATCH_MAX_OPS = 512
 
 PLANE_HOST = "cpu"
 PLANE_NCCL = "nccl"
@@ -205,9 +262,10 @@ def _forced_on(name: str) -> bool:
     return get_str(name).strip().lower() in ("1", "true", "yes", "on")
 
 
-_CONTROL_SPANS = ("ROADMAP A6 (the rest of elastic: the driver's DRV_* "
-                  "spans and tools/control_path.py, which reads them)")
 _TUNING = "ROADMAP A7 (autotune and the metrics export)"
+_LOCKDEP = "ROADMAP A7 (common/lockdep.py, the lock-order validator)"
+_SPARK = "ROADMAP A7 (spark/, pointed at the port's API)"
+_PARALLEL = "ROADMAP A8 (parallel/ and the launcher's --mesh-axes)"
 _CROSS_HOST = "ROADMAP A9 (the cross-host transport)"
 
 #: (knob, whether the JAX runtime acts on its value, the slice that brings
@@ -218,7 +276,6 @@ _CROSS_HOST = "ROADMAP A9 (the cross-host transport)"
 #: ``HOROVOD_WIRE_COMPRESSION`` when it names a codec; the fan-in when
 #: forced on; the topology when it asks for the tree.
 UNSUPPORTED_KNOBS = (
-    (HOROVOD_TIMELINE_CONTROL_PLANE, _on, _CONTROL_SPANS),
     (HOROVOD_AUTOTUNE, _on, _TUNING),
     (HOROVOD_AUTOTUNE_LOG, _given, _TUNING),
     (HOROVOD_AUTOTUNE_CODEC, _on, _TUNING),
@@ -238,12 +295,38 @@ UNSUPPORTED_KNOBS = (
     (HOROVOD_NEGOTIATION_FANIN_VETO_EPOCHS, _given, _CROSS_HOST),
     (HOROVOD_CONTROLLER_TOPOLOGY,
      lambda n: get_str(n).strip().lower() == "tree", _CROSS_HOST),
+    (HOROVOD_LOCK_DEBUG, _on, _LOCKDEP),
+    (HOROVOD_LOCK_DEBUG_SLOW_SECS, _given, _LOCKDEP),
+    (HOROVOD_SPARK_INLINE_MAX_ROWS, _given, _SPARK),
+    (HOROVOD_TPU_MESH_AXES, _given, _PARALLEL),
+    (HOROVOD_TRANSPORT, lambda n: get_str(n).strip().lower() == "shm",
+     _CROSS_HOST),
+    (HOROVOD_WIRE_CRC, _forced_on, _CROSS_HOST),
+    (HOROVOD_WIRE_CRC_SHADOW, _forced_on, _CROSS_HOST),
+    (HOROVOD_WIRE_DIGEST, _forced_on, _CROSS_HOST),
+    (HOROVOD_SHM_CRC, _forced_on, _CROSS_HOST),
+    (HOROVOD_FANIN, _forced_on, _CROSS_HOST),
+    (HOROVOD_FANIN_DIR, _given, _CROSS_HOST),
 )
 
 #: Knobs that only tune machinery of the JAX runtime with no counterpart
-#: here (its ring's segments, its finalizer pool, its dispatch pipeline).
-TUNING_ONLY_KNOBS = (HOROVOD_RING_SEGMENT_BYTES,
-                     HOROVOD_NUM_FINALIZER_THREADS, HOROVOD_PIPELINE_DISPATCH)
+#: here, or that it defines and never reads; each gets one warning.
+TUNING_ONLY_KNOBS = (
+    HOROVOD_RING_SEGMENT_BYTES,          # its ring's segments
+    HOROVOD_NUM_FINALIZER_THREADS,       # its XLA finalizer pool
+    HOROVOD_PIPELINE_DISPATCH,           # its dispatch pipeline
+    HOROVOD_TCP_PROGRESS_DEADLINE_SECS,  # its TCP mesh; gloo has its own
+    HOROVOD_SHM_RING_BYTES,              # its shared-memory rings
+    HOROVOD_SHM_HOSTID,                  # its shm link classification
+    HOROVOD_DISABLE_NATIVE,              # its C++ helpers (_native/)
+    HOROVOD_FLASH_ATTENTION,             # the port picks by attention_impl
+    HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES,   # autotune, refused above
+    HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE,  # autotune, refused above
+    HOROVOD_CONTROLLER,                  # set by its launcher, never read
+    HOROVOD_CPU_OPERATIONS,              # defined there, never read
+    HOROVOD_ADASUM_MPI_CHUNK_SIZE,       # defined there, never read
+    HOROVOD_XLA_BUCKET_BYTES,            # defined there, never read
+)
 
 
 def check_knobs() -> list:

@@ -11,10 +11,10 @@ Spec grammar (``HOROVOD_FAULT_SPEC``, clauses joined by ``;``)::
     site    := controller.negotiate | controller.tally |
                enqueue.collective | dispatch.collective |
                worker.spawn | ckpt.save | store.put | rendezvous.get |
-               driver.tick
-               (tcp.send, tcp.recv, shm.send, shm.recv and store.get_serve
-               parse in the JAX package only; here they raise ValueError
-               naming the item of ROADMAP.md that brings their layer)
+               store.get_serve | driver.tick
+               (tcp.send, tcp.recv, shm.send and shm.recv parse in the JAX
+               package only; here they raise ValueError naming the item of
+               ROADMAP.md that brings their layer)
     keys    := rank=N       only fire on this Horovod rank
                peer=N       only fire when the op targets this peer rank
                nth=N        fire exactly on the N-th matching call (1-based)
@@ -47,8 +47,11 @@ Where each site sits:
 - ``ckpt.save``: ``checkpoint.py``, between the payload's publish and its
   manifest;
 - ``store.put``: ``transport/store.py``, each ``set`` and each ``batch``
-  of the rendezvous store's client;
-- ``rendezvous.get``: ``transport/store.py``, each ``get`` of the client;
+  of the rendezvous store's clients;
+- ``rendezvous.get``: ``transport/store.py``, each ``get`` of a client;
+- ``store.get_serve``: ``runner/rendezvous.py``, each ``GET`` the
+  rendezvous server serves (``exit`` on the supervised server is a kill
+  in mid-serve);
 - ``driver.tick``: ``elastic/driver.py``, each tick of the elastic
   driver's discovery loop, outside its timing (``raise`` kills the loop,
   ``exit`` the launcher).
@@ -95,9 +98,6 @@ MISSING_SITES = {
     "tcp.recv": "ROADMAP A9 (the cross-host transport)",
     "shm.send": "ROADMAP A9 (the cross-host transport)",
     "shm.recv": "ROADMAP A9 (the cross-host transport)",
-    # A server-side site: the port's store server is TCPStore's, in C++.
-    "store.get_serve": "ROADMAP A6 (the journaled external rendezvous "
-                       "server, whose handler serves the gets)",
 }
 
 _ACTIONS = ("hang", "delay_ms", "raise", "raise_oserror", "exit", "drop",

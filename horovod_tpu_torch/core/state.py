@@ -180,14 +180,15 @@ class HorovodGlobalState:
 
     @staticmethod
     def _check_cross_rank(device: torch.device) -> str:
-        """What size > 1 needs before anything connects: the launcher's
-        rendezvous address and a data plane this rank can run.  Returns the
-        plane.  Nothing falls back: an unmet request raises."""
+        """What size > 1 needs before anything connects: the addresses of
+        the launcher's rendezvous server and process-group store, and a
+        data plane this rank can run.  Returns the plane.  Nothing falls
+        back: an unmet request raises."""
         addr = env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR)
         port = env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0)
         if not addr or not port:
             raise HorovodInternalError(
-                "size > 1 requires the launcher's rendezvous store "
+                "size > 1 requires the launcher's rendezvous server "
                 f"({env_mod.HOROVOD_RENDEZVOUS_ADDR} and "
                 f"{env_mod.HOROVOD_RENDEZVOUS_PORT}; run the job with "
                 "python -m horovod_tpu_torch.runner.launch -np N ...)")
@@ -204,6 +205,13 @@ class HorovodGlobalState:
                 raise HorovodInternalError(
                     f"{env_mod.HOROVOD_DATA_PLANE}=nccl, but this torch has "
                     "no NCCL")
+        if not env_mod.get_str(env_mod.HOROVOD_TORCH_STORE_ADDR) or \
+                not env_mod.get_int(env_mod.HOROVOD_TORCH_STORE_PORT, 0):
+            raise HorovodInternalError(
+                "size > 1 requires the launcher's process-group store "
+                f"({env_mod.HOROVOD_TORCH_STORE_ADDR} and "
+                f"{env_mod.HOROVOD_TORCH_STORE_PORT}, which "
+                "python -m horovod_tpu_torch.runner.launch sets)")
         return plane
 
     def _connect(self) -> None:
@@ -215,8 +223,8 @@ class HorovodGlobalState:
         # The membership epoch (HOROVOD_EPOCH, set by the elastic launcher
         # and the re-rendezvous) scopes the groups' store keys.
         epoch = env_mod.get_epoch()
-        store = Store.connect(env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR),
-                              env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
+        store = Store.connect(env_mod.get_str(env_mod.HOROVOD_TORCH_STORE_ADDR),
+                              env_mod.get_int(env_mod.HOROVOD_TORCH_STORE_PORT, 0),
                               timeout)
         store.set("worker_started" if epoch == 0
                   else f"worker_started.{epoch}", str(topo.rank), b"1")

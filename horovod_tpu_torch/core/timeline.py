@@ -15,10 +15,15 @@ rank), and a ``clock_sync`` metadata record carries the trace's wall-clock
 base.  ``horovod_tpu_torch/tools/trace_merge.py`` aligns the per-rank files
 into one view and ``tools/critical_path.py`` attributes each step's time.
 
-The port's launcher hosts a ``TCPStore``, not an HTTP rendezvous server
-with a clock endpoint, so :func:`estimate_server_clock_offset_ns` has no
-server to ask and returns None: ``trace_merge`` then assumes synced clocks,
-which holds for the ranks of one host.
+Each process estimates its wall-clock offset to the rendezvous server from
+the server's ``GET /clock`` (:func:`estimate_server_clock_offset_ns`), and
+``trace_merge`` aligns the files on it.  The control plane writes its own
+spans on whatever timeline is active (``HOROVOD_TIMELINE_CONTROL_PLANE``,
+default on): ``RVC_*`` around each store round trip, and in the launcher's
+trace ``<path>.driver`` the driver's ``DRV_WAIT``, ``DRV_SPAWN`` and one
+``CHURN_EVENT`` per epoch change; the server's own trace
+(``HOROVOD_SERVER_TIMELINE``) holds its ``RV_*`` and ``JR_*`` spans.
+``tools/control_path.py`` reads them.
 
 Turned on by ``HOROVOD_TIMELINE`` (the launcher's ``--timeline-filename``)
 or ``hvd.start_timeline()``; off by default, when every instrumented site
@@ -44,11 +49,16 @@ CLOCK_SYNC_EVENT = "clock_sync"
 #: unfused → callback) on every rank, read by ``tools/critical_path.py``.
 LIFECYCLE_ENABLED = env_mod.get_bool(env_mod.HOROVOD_TIMELINE_LIFECYCLE, True)
 
-#: Control-plane spans.  No site of the port emits them yet: the elastic
-#: driver's ``DRV_*`` spans and ``tools/control_path.py`` are still to come
-#: (ROADMAP A6), and ``hvd.init()`` refuses the knob when it is set on.
+#: Control-plane spans (``RV_*`` on the server's trace, ``RVC_*`` store
+#: round trips, ``DRV_*`` and ``CHURN_EVENT`` on the driver's), read by
+#: ``tools/control_path.py``.
 CONTROL_PLANE_ENABLED = env_mod.get_bool(
     env_mod.HOROVOD_TIMELINE_CONTROL_PLANE, True)
+
+#: The trace pids of the rendezvous server and the elastic driver: ranks
+#: own the non-negative ones.
+SERVER_TRACE_PID = -1
+DRIVER_TRACE_PID = -2
 
 #: The process's live Timeline, set by the constructor and cleared by
 #: ``close()``: sites that cannot reach the runtime's state (the tensor
@@ -118,12 +128,35 @@ def rank_trace_path(path: str, rank: int) -> str:
     return path if rank == 0 else f"{path}.rank{rank}"
 
 
-def estimate_server_clock_offset_ns() -> Optional[int]:
-    """This host's wall-clock offset to the rendezvous server.  The port's
-    launcher runs a ``TCPStore``, which has no clock endpoint: None, and
-    ``trace_merge`` assumes synced clocks (ROADMAP A6/A9 bring the
-    server)."""
-    return None
+def estimate_server_clock_offset_ns(samples: int = 3) -> Optional[int]:
+    """This host's wall-clock offset to the rendezvous server (``local -
+    server``, ns) from its ``GET /clock``: of ``samples`` round trips, the
+    one with the least round-trip time, its midpoint against the server's
+    reading.  Every process measures against the same server, so two
+    ranks' skew is the difference of their estimates.  None without a
+    rendezvous server in the environment, or when it does not answer:
+    ``trace_merge`` then assumes synced clocks."""
+    import urllib.request
+
+    addr = env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR)
+    port = env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0)
+    if not addr or not port:
+        return None
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    best = None  # (rtt_ns, offset_ns)
+    try:
+        for _ in range(samples):
+            t0 = time.time_ns()
+            with opener.open(f"http://{addr}:{port}/clock",
+                             timeout=2.0) as resp:
+                server_ns = int(resp.read())
+            t1 = time.time_ns()
+            cand = (t1 - t0, (t0 + t1) // 2 - server_ns)
+            if best is None or cand[0] < best[0]:
+                best = cand
+    except (OSError, ValueError):
+        pass
+    return None if best is None else best[1]
 
 
 class Timeline:

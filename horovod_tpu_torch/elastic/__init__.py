@@ -11,7 +11,7 @@ Three cooperating parts:
   :mod:`.launcher`), in the launcher's process: the discovery script
   polled every second, the host set's diff and blacklist, stable ranks,
   the workers' exits, leases and requests, and one membership epoch per
-  change, published through the launcher's store;
+  change, published through the rendezvous server;
 - the notification channel (:mod:`.worker`): signed driver -> worker
   pings.
 

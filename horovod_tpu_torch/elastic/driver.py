@@ -12,7 +12,7 @@ Membership protocol:
 
 1. every epoch the driver publishes a slot table (rank/local/cross + epoch)
    under ``rank_and_size/{hostname}:{local_rank}``, with its epoch, in one
-   ``multi_set`` of the launcher's store;
+   batch of the rendezvous server's store (``runner/rendezvous.py``);
 2. workers (re)initialize from their identity's entry; removed identities
    see ``rank: -1`` and exit;
 3. on a change: epoch += 1, publish, notify live workers with the NEW epoch
@@ -32,16 +32,31 @@ one yielded step, which :class:`ElasticDriver` executes against the store,
 the host manager and the clock.  The tests drive the JAX package's
 generators and these with the same inputs.
 
-Left out, and in ROADMAP A6: the JAX driver's recovery from a journaled
-external store (``recover_from_store``, ``recover_steps``,
-``outage_recovery_steps``, the store-outage mode and the initial publish's
-``check`` fence) and its ``DRV_*`` timeline spans.  The port's store lives
-in the launcher's own process and does not restart.
+Against a server in another process (``HOROVOD_RENDEZVOUS_EXTERNAL``) a
+store op can fail.  A tick whose store ops fail puts the driver in its
+store-outage mode: no lease expires and no epoch advances until the store
+answers again, and then every lease gets one full timeout to show life
+(:func:`outage_recovery_steps`): the workers could not renew through the
+outage, and a restarted server's replayed leases are old.  A launcher
+started again over a journaled server re-adopts the epoch and the live
+workers from it (:meth:`ElasticDriver.recover_from_store`,
+:func:`recover_steps`), and its first publish is fenced on the epoch it
+read (a ``check`` op), so that a publish of an earlier incarnation that
+lands in between is not overwritten with an older epoch.
 
-One difference from the JAX driver: the exit of a worker whose identity no
-longer holds a rank (a removed host's worker leaving with 0) is not the
+With a timeline active (the launcher's ``<path>.driver``), the driver
+writes ``DRV_WAIT`` (the loop's sleep), ``DRV_SPAWN`` (each worker's
+spawn) and one ``CHURN_EVENT`` per epoch change, from the start of the
+tick that saw the change to the end of the notify.
+
+Two differences from the JAX driver.  The exit of a worker whose identity
+no longer holds a rank (a removed host's worker leaving with 0) is not the
 job's success, as in reference Horovod's ``_handle_worker_exit``; the JAX
-driver counts it, and then refuses every later epoch.
+driver counts it, and then refuses every later epoch.  A store error in
+the middle of an epoch change puts the driver in its store-outage mode,
+and the change is made again, at a newer epoch, once the store answers
+(the table may not have landed); the JAX driver's discovery thread dies
+on it.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ from ..common import faults
 from ..common.logging_util import get_logger
 from ..core import flight_recorder
 from ..core import metrics
+from ..core import timeline as timeline_mod
 from ..runner.hosts import SlotInfo, get_host_assignments
 from ..transport.scopes import (
     DEMOTION_REPORT_SCOPE,
@@ -67,7 +83,6 @@ from ..transport.scopes import (
     RESET_REQUEST_SCOPE,
     WORKERS_SCOPE,
 )
-from ..transport.store import Store
 from .constants import (
     DEFAULT_CRASH_FAILURE_LIMIT,
     DEFAULT_TRANSIENT_FAILURE_LIMIT,
@@ -366,9 +381,61 @@ def reshard_commit_steps(epoch: int, survivors):
     return {"committed": True, "missing": []}
 
 
+def outage_recovery_steps(lease_timeout: float):
+    """On the first successful fetch after a store outage: the workers could
+    not renew through it (their renewals go to the same store), so the
+    judgment clock restarts and every lease gets one full timeout before
+    it may expire.  Without this re-grace a restarted server's replayed
+    leases read as expired at once, and a live worker is shed."""
+    now = yield (STEP_CLOCK,)
+    yield (STEP_GRACE, now + lease_timeout)
+
+
+def recover_steps(lease_timeout: float):
+    """A restarted driver's adoption: the durable epoch, and the identities
+    with a lease whose slot entry holds a rank at that epoch, then the
+    re-grace (the replayed lease values are old).  Returns None when the
+    store holds no epoch, else ``{"epoch", "adopted"}`` with ``adopted``
+    mapping identity -> (slot dict, lease value)."""
+    res = yield (STEP_TXN, (("get", DRIVER_SCOPE, "epoch"),),
+                 "recover_epoch")
+    raw = res[0]
+    if raw is None:
+        return None
+    epoch = int(bytes(raw).decode())
+    leased = (yield (STEP_TXN, (("keys", LEASE_SCOPE),),
+                     "recover_lease_keys"))[0]
+    fetch_ops: List[tuple] = []
+    for identity in leased:
+        fetch_ops.append(("get", LEASE_SCOPE, identity))
+        fetch_ops.append(("get", RANK_AND_SIZE_SCOPE, identity))
+    fetched: List[object] = []
+    if fetch_ops:
+        fetched = yield (STEP_TXN, tuple(fetch_ops), "recover_slots")
+    adopted: Dict[str, Tuple[dict, object]] = {}
+    for i, identity in enumerate(leased):
+        lease, slot_raw = fetched[2 * i], fetched[2 * i + 1]
+        if lease is None or slot_raw is None:
+            continue
+        try:
+            slot = json.loads(bytes(slot_raw).decode())
+        except ValueError:
+            continue
+        if slot.get("rank", -1) < 0 or slot.get("epoch", -1) != epoch:
+            continue
+        adopted[identity] = (slot, lease)
+    now = yield (STEP_CLOCK,)
+    yield (STEP_GRACE, now + lease_timeout)
+    return {"epoch": epoch, "adopted": adopted}
+
 
 class ElasticDriver:
-    def __init__(self, rendezvous: Store, host_manager: HostManager,
+    #: What a store op raises when the server is down or restarting: the
+    #: HTTP client's connection errors, all ``OSError``.  The in-process
+    #: server never raises them.
+    _STORE_ERRORS = OSError
+
+    def __init__(self, rendezvous, host_manager: HostManager,
                  min_np: int, max_np: Optional[int] = None,
                  reset_limit: Optional[int] = None,
                  timeout: float = ELASTIC_TIMEOUT_SECS,
@@ -419,6 +486,12 @@ class ElasticDriver:
                                    env_mod.DEFAULT_LEASE_TIMEOUT_SECS)
         self._lease_seen: Dict[str, Tuple[bytes, float]] = {}
         self._lease_grace_until = 0.0
+        # Monotonic time the store stopped answering, or None.
+        self._store_outage_since: Optional[float] = None
+        # Set when the store failed during an epoch change: the table may
+        # not have landed, so the change is made again, at a newer epoch,
+        # once the store answers.
+        self._readvance = False
         # -- resharding: the published but uncommitted reshard ({"epoch",
         # "survivors", "published_ns", "missing"}), and the joiners of the
         # last marked publish (see reshard_plan).
@@ -426,6 +499,9 @@ class ElasticDriver:
                                                 True)
         self._reshard_pending: Optional[dict] = None
         self._last_reshard_joiners: set = set()
+        # The epoch recover_from_store adopted (None: a fresh start), which
+        # the initial publish fences on.
+        self._recovered_epoch: Optional[int] = None
 
     # ------------------------------------------------------------------
 
@@ -449,7 +525,19 @@ class ElasticDriver:
         discovery loop."""
         self._create_worker = create_worker
         self.wait_for_available_slots()
-        self._rendezvous_epoch(initial=True)
+        for attempt in range(5):
+            if self._rendezvous_epoch(initial=True):
+                break
+            # The fence failed: an earlier incarnation's publish landed
+            # after our recovery read.  Adopt again and publish at its epoch.
+            log.warning("the initial epoch publish lost its fence (attempt "
+                        "%d); adopting the driver's state from the store "
+                        "again", attempt + 1)
+            self.recover_from_store()
+        else:
+            raise RuntimeError(
+                "could not fence the initial epoch publish in 5 attempts: "
+                "the store's epoch keeps moving")
         self._discovery_thread = threading.Thread(
             target=self._discovery_loop, name="hvd-elastic-discovery",
             daemon=True)
@@ -469,7 +557,9 @@ class ElasticDriver:
         np_ = min(total, self.max_np) if self.max_np else total
         return get_host_assignments(hosts, min(self.min_np, np_), np_)
 
-    def _rendezvous_epoch(self, initial: bool = False) -> None:
+    def _rendezvous_epoch(self, initial: bool = False) -> bool:
+        """Publish the epoch's table and spawn its new identities.  False
+        when the initial publish lost its fence (nothing was written)."""
         with self._lock:
             if not initial:
                 self.epoch += 1
@@ -519,6 +609,25 @@ class ElasticDriver:
                     slot["sync_root"] = plan["sync_root"]
                     slot["joiners"] = plan["joiners"]
                     slot["survivors"] = plan["survivors"]
+            # The whole table and the epoch in one batch: no worker reads
+            # half of a table, and a restarted driver adopts this epoch.
+            publish_ops = [
+                ("set", RANK_AND_SIZE_SCOPE, identity,
+                 json.dumps(slot).encode())
+                for identity, slot in table.items()]
+            publish_ops.append(("set", DRIVER_SCOPE, "epoch",
+                                str(self.epoch).encode()))
+            if initial:
+                # Fenced on the adopted epoch (absent on a fresh start).
+                expected = None if self._recovered_epoch is None \
+                    else str(self._recovered_epoch).encode()
+                publish_ops.insert(
+                    0, ("check", DRIVER_SCOPE, "epoch", expected))
+            if plan["eligible"]:
+                # Armed before the publish: a store error does not prove
+                # that the marked table never landed, and a pending reshard
+                # whose marker never landed is never acked, so the next
+                # advance falls back.
                 self._reshard_pending = {
                     "epoch": self.epoch,
                     "survivors": plan["survivors"],
@@ -528,15 +637,9 @@ class ElasticDriver:
                 self._last_reshard_joiners = set(plan["joiners"])
             else:
                 self._last_reshard_joiners = set()
-            # The whole table and the epoch in one multi_set: no worker
-            # reads half of a table.
-            publish_ops = [
-                ("set", RANK_AND_SIZE_SCOPE, identity,
-                 json.dumps(slot).encode())
-                for identity, slot in table.items()]
-            publish_ops.append(("set", DRIVER_SCOPE, "epoch",
-                                str(self.epoch).encode()))
-            self.rendezvous.batch(publish_ops)
+            results = self.rendezvous.batch(publish_ops)
+            if initial and results and results[0] is False:
+                return False
             if plan["eligible"]:
                 flight_recorder.record(
                     "reshard_publish", epoch=self.epoch,
@@ -562,7 +665,13 @@ class ElasticDriver:
                     # first renews, as at the job's start.
                     self.rendezvous.delete(LEASE_SCOPE, identity)
                     self._lease_seen.pop(identity, None)
+                    t_spawn = time.monotonic_ns() \
+                        if timeline_mod.control_active() else None
                     self._create_worker(s, self.epoch)
+                    if t_spawn is not None:
+                        timeline_mod.control_span_since(
+                            "driver", "DRV_SPAWN", t_spawn,
+                            identity=identity, epoch=self.epoch)
                     self._exited_identities.discard(identity)
                     ack_ops.append(("set", EPOCH_ACK_SCOPE, identity,
                                     str(self.epoch).encode()))
@@ -574,6 +683,7 @@ class ElasticDriver:
                 i for i in self._known_identities if i not in current}
             for identity in self._removed_identities:
                 self._known_identities.pop(identity)
+            return True
 
     def _notify_workers(self, added_only: bool,
                         identities: Optional[set] = None,
@@ -601,7 +711,11 @@ class ElasticDriver:
 
     def _discovery_loop(self) -> None:
         while not self._shutdown.is_set():
+            t_wait = time.monotonic_ns() \
+                if timeline_mod.control_active() else None
             self._wakeup.wait(DISCOVER_HOSTS_FREQUENCY_SECS)
+            if t_wait is not None:
+                timeline_mod.control_span_since("driver", "DRV_WAIT", t_wait)
             self._wakeup.clear()
             if self._shutdown.is_set():
                 return
@@ -609,19 +723,38 @@ class ElasticDriver:
             # wedged driver), exit the launcher.
             if faults.ACTIVE:
                 faults.inject("driver.tick")
-            t0 = time.monotonic()
+            t0 = time.monotonic_ns()
             try:
-                self._tick()
+                self._tick(t0)
+            except self._STORE_ERRORS as e:
+                self._store_outage(e)
+                self._readvance = True
             finally:
-                metrics.observe("driver_tick_seconds", time.monotonic() - t0)
+                metrics.observe("driver_tick_seconds",
+                                (time.monotonic_ns() - t0) / 1e9)
 
-    def _tick(self) -> None:
+    def _tick(self, t0_ns: Optional[int] = None) -> None:
         """One discovery tick: the batched reads, the re-notify of unacked
         workers and the reshard commit probe, then the judgment kernel
-        against the live host manager and clock."""
-        fetched = self._tick_store_reads()
-        self._renotify_unacked(fetched.get("epoch_ack"))
-        self._reshard_commit_probe()
+        against the live host manager and clock.  A store error in the
+        first part means that the store is down, not that workers died:
+        the tick ends in the store-outage mode.  ``t0_ns`` (default now)
+        starts the CHURN_EVENT span when the tick advances the epoch."""
+        if t0_ns is None:
+            t0_ns = time.monotonic_ns()
+        try:
+            fetched = self._tick_store_reads()
+            self._renotify_unacked(fetched.get("epoch_ack"))
+            self._store_recovered()
+            self._reshard_commit_probe()
+        except self._STORE_ERRORS as e:
+            self._store_outage(e)
+            return
+        if self._readvance:
+            self._readvance = False
+            self._advance("store_outage", True, removal=False, missing=set(),
+                          reset_reasons=[], demoted=[], t0_ns=t0_ns)
+            return
         with self._lock:
             rank_to_host = {s.rank: s.hostname for s in self._slots}
             slot_identities = {f"{s.hostname}:{s.local_rank}"
@@ -667,11 +800,17 @@ class ElasticDriver:
             metrics.inc("lease_expirations_total", len(j["expired"]))
         if not j["advanced"]:
             return
-        cause, removalish = j["cause"], j["removalish"]
+        self._advance(j["cause"], j["removalish"], removal=j["removal"],
+                      missing=j["missing"], reset_reasons=j["reset_reasons"],
+                      demoted=j["demoted"], t0_ns=t0_ns)
+
+    def _advance(self, cause: str, removalish: bool, removal, missing,
+                 reset_reasons, demoted, t0_ns: int) -> None:
+        """The epoch change: publish, notify, record."""
         log.info("host set changed (removal=%s, dead_workers=%s, "
                  "reset_requests=%s, demotions=%s, cause=%s); "
-                 "advancing epoch", j["removal"], sorted(j["missing"]),
-                 j["reset_reasons"], j["demoted"], cause)
+                 "advancing epoch", removal, sorted(missing),
+                 reset_reasons, demoted, cause)
         self._rendezvous_epoch()
         self._await_ack = not removalish  # the flavor, for the re-notify
         self._notify_workers(added_only=not removalish,
@@ -679,8 +818,13 @@ class ElasticDriver:
         metrics.inc("driver_epoch_transitions_total", cause=cause)
         flight_recorder.record(
             "epoch_transition", epoch=self.epoch, cause=cause,
-            removal=j["removal"], dead_workers=sorted(j["missing"]),
-            reset_requests=j["reset_reasons"], demotions=j["demoted"])
+            removal=removal, dead_workers=sorted(missing),
+            reset_requests=reset_reasons, demotions=demoted)
+        if timeline_mod.control_active():
+            timeline_mod.control_span_since(
+                "driver", "CHURN_EVENT", t0_ns, epoch=self.epoch, cause=cause)
+            timeline_mod.control_instant(
+                "driver", "EPOCH_TRANSITION", epoch=self.epoch, cause=cause)
 
     def _judgment_gate(self, which: str) -> bool:
         """Answer one STEP_GATE: True blocks this tick's advance."""
@@ -780,6 +924,80 @@ class ElasticDriver:
                 return fin.value
             assert step[0] == STEP_TXN, step
             resp = self.rendezvous.batch(list(step[1]))
+
+    def _store_outage(self, err: Exception) -> None:
+        if self._store_outage_since is None:
+            self._store_outage_since = time.monotonic()
+            log.warning("rendezvous store unreachable (%s); no membership "
+                        "change until it answers again", err)
+
+    def _store_recovered(self) -> None:
+        """After an outage: the re-grace of :func:`outage_recovery_steps`."""
+        if self._store_outage_since is None:
+            return
+        outage = time.monotonic() - self._store_outage_since
+        self._store_outage_since = None
+        steps = outage_recovery_steps(self.lease_timeout)
+        resp = None
+        while True:
+            try:
+                step = steps.send(resp)
+            except StopIteration:
+                break
+            resp = None
+            if step[0] == STEP_CLOCK:
+                resp = time.monotonic()
+            elif step[0] == STEP_GRACE:
+                self._lease_grace_until = step[1]
+        log.info("rendezvous store reachable again after %.1fs; lease "
+                 "clocks re-graced for %.0fs", outage, self.lease_timeout)
+
+    def recover_from_store(self) -> bool:
+        """Before :meth:`start`: adopt an earlier incarnation's epoch and
+        live workers from a journaled store (:func:`recover_steps`), so
+        that ``start()`` publishes the same epoch and spawns only the
+        identities with no live worker.  Returns whether there was state
+        to adopt."""
+        try:
+            steps = recover_steps(self.lease_timeout)
+            resp = None
+            while True:
+                try:
+                    step = steps.send(resp)
+                except StopIteration as fin:
+                    recovered = fin.value
+                    break
+                resp = None
+                if step[0] == STEP_TXN:
+                    resp = self.rendezvous.batch(list(step[1]))
+                elif step[0] == STEP_CLOCK:
+                    resp = time.monotonic()
+                elif step[0] == STEP_GRACE:
+                    self._lease_grace_until = step[1]
+        except (self._STORE_ERRORS, ValueError) as e:
+            log.warning("driver state recovery failed (%s); starting at "
+                        "epoch 0", e)
+            self._recovered_epoch = None
+            return False
+        if recovered is None:
+            self._recovered_epoch = None
+            return False
+        self.epoch = recovered["epoch"]
+        self._recovered_epoch = recovered["epoch"]
+        now = time.monotonic()
+        with self._lock:
+            for identity, (slot, lease) in recovered["adopted"].items():
+                self._known_identities[identity] = SlotInfo(
+                    hostname=slot["hostname"], rank=slot["rank"],
+                    local_rank=slot["local_rank"],
+                    cross_rank=slot["cross_rank"], size=slot["size"],
+                    local_size=slot["local_size"],
+                    cross_size=slot["cross_size"])
+                self._lease_seen[identity] = (lease, now)
+        log.info("recovered the driver's state from the store: epoch %d, "
+                 "live workers %s", self.epoch,
+                 sorted(recovered["adopted"]) or "(none)")
+        return True
 
     def _renotify_unacked(
             self, acks: Optional[Dict[str, object]] = None) -> None:

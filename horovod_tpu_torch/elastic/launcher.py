@@ -1,34 +1,47 @@
 """The elastic launch: the driver wired into the launcher.
 
 The port's copy of ``horovod_tpu/elastic/launcher.py`` (reference
-``runner/gloo_run.py:287-336``, ``launch_gloo_elastic``): host the store,
-build discovery from the script (or fixed hosts), let the driver spawn a
-worker per slot with the elastic environment (``HOROVOD_ELASTIC=1``, the
-epoch it is born at, the job's key), watch each worker's exit, and finish
-when the surviving workers have.
+``runner/gloo_run.py:287-336``, ``launch_gloo_elastic``): host the stores
+(``runner/launch.py::start_stores``), build discovery from the script (or
+fixed hosts), let the driver spawn a worker per slot with the elastic
+environment (``HOROVOD_ELASTIC=1``, the epoch it is born at, the job's
+key), watch each worker's exit, and finish when the surviving workers
+have.
 
-Refused, each naming its item of ROADMAP A6: ``--host-discovery
-tpu-metadata`` (TPU-VM metadata; on a GPU host the discovery script takes
-its role) and ``HOROVOD_RENDEZVOUS_EXTERNAL`` (the JAX package's journaled
-external rendezvous server).
+With ``HOROVOD_RENDEZVOUS_EXTERNAL=host:port`` the driver works on a
+supervised, journaled server in another process: it first adopts the
+epoch and the live workers that the server holds
+(``ElasticDriver.recover_from_store``; nothing on a fresh journal), and a
+server that is killed and started again over its journal is ridden out by
+the driver's store-outage mode.  Give each job its own journal directory:
+an old job's state would be adopted too.  With ``HOROVOD_TIMELINE`` (or
+``--timeline-filename``) the launcher writes the driver's trace at
+``<path>.driver``.
+
+``--host-discovery tpu-metadata`` is refused: on a GPU host the discovery
+script takes the TPU-VM metadata's role.
 """
 
 from __future__ import annotations
 
 import signal
-import socket
 import subprocess
 import threading
 import time
 from typing import Dict, List
 
 from ..common import env as env_mod
-from ..common import secret as secret_mod
 from ..common.logging_util import get_logger
+from ..core import timeline as timeline_mod
 from ..runner import config_parser
 from ..runner.hosts import SlotInfo, parse_host_files, parse_hosts
-from ..runner.launch import _is_local, _pumps, _slot_env, spawn_worker
-from ..transport.store import StoreServer
+from ..runner.launch import (
+    _is_local,
+    _pumps,
+    _slot_env,
+    spawn_worker,
+    start_stores,
+)
 from .discovery import FixedHosts, HostDiscoveryScript, HostManager
 from .driver import ElasticDriver
 from .registration import FAILURE, SUCCESS
@@ -55,36 +68,39 @@ def _discovery(args):
 
 
 def launch_elastic_job(args, command: List[str]) -> int:
-    if env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_EXTERNAL):
-        raise SystemExit(
-            f"launch: {env_mod.HOROVOD_RENDEZVOUS_EXTERNAL} names the JAX "
-            "package's journaled external rendezvous server, which this "
-            "port does not have (ROADMAP A6: the journaled rendezvous "
-            "server); unset it: the launcher hosts the store")
     discovery = _discovery(args)
-    secret_mod.ensure_job_secret()
     found = discovery.find_available_hosts_and_slots()
     local_only = all(_is_local(h) for h in found)
-    server = StoreServer(local_only)
-    rdv_addr = "127.0.0.1" if local_only else \
-        socket.gethostbyname(socket.gethostname())
+    extra = config_parser.env_from_args(args)
+    extra[env_mod.HOROVOD_ELASTIC] = "1"
+    if args.reset_limit:
+        extra[env_mod.HOROVOD_ELASTIC_RESET_LIMIT] = str(args.reset_limit)
+    server, rdv_addr, rdv_port, tcp = start_stores(local_only, extra)
     min_np = args.min_np or args.num_proc
     driver_kwargs = {}
     if args.start_timeout:
         driver_kwargs["timeout"] = args.start_timeout
     driver = ElasticDriver(
-        server.store, HostManager(discovery), min_np=min_np,
+        server, HostManager(discovery), min_np=min_np,
         max_np=args.max_np, reset_limit=args.reset_limit, **driver_kwargs)
-    extra = config_parser.env_from_args(args)
-    extra[env_mod.HOROVOD_ELASTIC] = "1"
-    if args.reset_limit:
-        extra[env_mod.HOROVOD_ELASTIC_RESET_LIMIT] = str(args.reset_limit)
+    if env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_EXTERNAL):
+        driver.recover_from_store()
+    driver_timeline = None
+    timeline_path = extra.get(env_mod.HOROVOD_TIMELINE) or \
+        env_mod.get_str(env_mod.HOROVOD_TIMELINE)
+    if timeline_path:
+        # The launcher's active timeline: the driver's spans and the store
+        # client's RVC_* land in it.  Its clock is taken as the server's,
+        # as the JAX launcher does (offset 0).
+        driver_timeline = timeline_mod.Timeline(
+            f"{timeline_path}.driver", rank=timeline_mod.DRIVER_TRACE_PID,
+            clock_offset_ns=0, process_name="elastic driver")
 
     procs: Dict[str, subprocess.Popen] = {}
     lock = threading.Lock()
 
     def create_worker(slot: SlotInfo, epoch: int) -> None:
-        env = _slot_env(slot, rdv_addr, server.port, extra)
+        env = _slot_env(slot, rdv_addr, rdv_port, extra)
         env[env_mod.HOROVOD_EPOCH] = str(epoch)
         proc = spawn_worker(slot, command, env)
         identity = f"{slot.hostname}:{slot.local_rank}"
@@ -132,4 +148,7 @@ def launch_elastic_job(args, command: List[str]) -> int:
         for proc in live:
             if proc.poll() is None:
                 proc.kill()
-        server.close()
+        server.stop()
+        tcp.close()
+        if driver_timeline is not None:
+            driver_timeline.close()

@@ -2,8 +2,12 @@
 worker -> driver posts.
 
 The port's copy of ``horovod_tpu/elastic/rendezvous_client.py``, over the
-launcher's ``TCPStore`` (``transport/store.py``) instead of the HTTP
-store.  Reference: ``gloo_context.cc:154-189`` — on elastic re-init the
+HTTP rendezvous server (``runner/rendezvous.py``) through
+``transport/store.py::HTTPStoreClient``.  A post that fails because the
+server is down (an ``OSError``) is retried where the caller loops (the
+lease renewals, the slot-table reads) and is best-effort elsewhere, so no
+worker raises or exits for an outage shorter than the lease timeout.
+Reference: ``gloo_context.cc:154-189`` — on elastic re-init the
 worker asks the ``rank_and_size`` scope for its new rank and size, keyed by
 ``hostname:local_rank``; a removed host gets rank -1 and exits.
 """
@@ -31,7 +35,7 @@ from ..transport.scopes import (
     RANK_AND_SIZE_SCOPE,
     RESET_REQUEST_SCOPE,
 )
-from ..transport.store import Store
+from ..transport.store import HTTPStoreClient
 
 log = get_logger("horovod_tpu_torch.elastic.rendezvous_client")
 
@@ -80,13 +84,13 @@ def demotion_report_payload(epoch: int, rank: int, hostname, ewma: float,
     }).encode()
 
 
-_clients: Dict[Tuple[str, int], Store] = {}
+_clients: Dict[Tuple[str, int], HTTPStoreClient] = {}
 _clients_lock = threading.Lock()
 
 
-def store_client() -> Optional[Store]:
-    """The launcher's store from the environment (None outside launched
-    jobs), one client per address for the process."""
+def store_client() -> Optional[HTTPStoreClient]:
+    """The rendezvous server's client from the environment (None outside
+    launched jobs), one per address for the process."""
     addr = env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR)
     port = env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0)
     if not addr or not port:
@@ -94,7 +98,7 @@ def store_client() -> Optional[Store]:
     with _clients_lock:
         store = _clients.get((addr, port))
         if store is None:
-            store = Store.connect(addr, port, env_mod.get_float(
+            store = HTTPStoreClient(addr, port, env_mod.get_float(
                 env_mod.HOROVOD_MESH_STARTUP_TIMEOUT,
                 env_mod.DEFAULT_MESH_STARTUP_TIMEOUT))
             _clients[(addr, port)] = store
@@ -129,9 +133,9 @@ def post_demotion_report(rank: int, ewma: float, threshold: float,
     """Post the coordinator's chronic-straggler verdict to the driver,
     epoch-stamped and best-effort.  Returns whether it was posted (False
     outside launched jobs: the verdict is then detector-only).  The report
-    names no host: the driver resolves the rank from its own slot table
-    (the JAX client looks the host up by listing the table's keys, which
-    the port's store is not asked to do)."""
+    names no host: the driver resolves the rank from its own slot table,
+    which is authoritative (the JAX client also lists the table's keys to
+    name the host in the report's evidence)."""
     try:
         store = store_client()
         if store is None:
@@ -151,7 +155,7 @@ class _LeaseRenewals:
     the process's metrics snapshot, in one store batch.  Best-effort: a
     failed push is counted and logged once per outage."""
 
-    def __init__(self, store: Store, period: float):
+    def __init__(self, store: HTTPStoreClient, period: float):
         self.store = store
         self.period = period
         self.renewals = 0

@@ -64,7 +64,7 @@ def _local_job() -> bool:
 
 def start_notification_service() -> int:
     """Start this worker's notify server and register its address in the
-    launcher's store; returns the bound port."""
+    rendezvous server; returns the bound port."""
     local = _local_job()
     server = ThreadingHTTPServer(("127.0.0.1" if local else "0.0.0.0", 0),
                                  _NotifyHandler)

@@ -5,10 +5,14 @@ the ``--config-file``, assign slots, host the rendezvous store, start one
 worker per slot with its ``HOROVOD_*`` environment (``ssh`` for a remote
 host), stream each worker's output (with its rank in front under
 ``--verbose``; into ``DIR/rank.<r>/stdout`` and ``stderr`` as well under
-``--output-filename DIR``), and end the job when a worker fails.  The store
-is a ``torch.distributed.TCPStore`` (``transport/store.py``), bound to
-127.0.0.1 when every slot is on this host; the workers' runtime joins its
-process groups through it.
+``--output-filename DIR``), and end the job when a worker fails.  The
+launcher hosts two stores, bound to 127.0.0.1 when every slot is on this
+host: the HTTP rendezvous server (``runner/rendezvous.py``;
+``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``), or with
+``HOROVOD_RENDEZVOUS_EXTERNAL=host:port`` the supervised one it names; and
+a ``torch.distributed.TCPStore`` (``transport/store.py``;
+``HOROVOD_TORCH_STORE_ADDR``/``_PORT``), through which the workers' runtime
+builds its process groups.
 
 Usage::
 
@@ -39,8 +43,10 @@ from typing import Dict, List, Optional
 
 from ..common import env as env_mod
 from ..common import faults
+from ..common import secret as secret_mod
 from ..transport.store import StoreServer
 from . import config_parser
+from .rendezvous import ExternalRendezvous, RendezvousServer
 from .hosts import (
     SlotInfo,
     get_host_assignments,
@@ -145,6 +151,31 @@ def _slot_env(slot: SlotInfo, rdv_addr: str, rdv_port: int,
     return env
 
 
+def start_stores(local_only: bool, extra: Dict[str, str]):
+    """The job's two stores (see the module docstring).  Returns the
+    rendezvous server (a :class:`RendezvousServer` started here, or the
+    :class:`ExternalRendezvous` of ``HOROVOD_RENDEZVOUS_EXTERNAL``), the
+    address and port the workers dial for it, and the ``StoreServer``;
+    the process-group store's address goes into ``extra``.  Without an
+    external server the job's key is made here (``HOROVOD_SECRET_KEY``
+    when set); an external server's key is the operator's to share."""
+    here = "127.0.0.1" if local_only else \
+        socket.gethostbyname(socket.gethostname())
+    external = env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_EXTERNAL)
+    if external:
+        server = ExternalRendezvous.from_env(external)
+        rdv_addr, rdv_port = server.addr, server.port
+    else:
+        server = RendezvousServer(
+            bind_addr="127.0.0.1" if local_only else "0.0.0.0",
+            job_secret=secret_mod.ensure_job_secret().encode())
+        rdv_addr, rdv_port = here, server.start()
+    tcp = StoreServer(local_only)
+    extra[env_mod.HOROVOD_TORCH_STORE_ADDR] = here
+    extra[env_mod.HOROVOD_TORCH_STORE_PORT] = str(tcp.port)
+    return server, rdv_addr, rdv_port, tcp
+
+
 def _is_local(hostname: str) -> bool:
     # All of 127.0.0.0/8 is this machine.
     return hostname.startswith("127.") or hostname in (
@@ -232,16 +263,14 @@ def launch_job(args, command: List[str]) -> int:
     slots = get_host_assignments(
         parse_hosts(hosts or f"localhost:{args.num_proc}"), args.num_proc)
     local_only = all(_is_local(s.hostname) for s in slots)
-    server = StoreServer(local_only)
-    rdv_addr = "127.0.0.1" if local_only else \
-        socket.gethostbyname(socket.gethostname())
     extra = runtime_env(args)
+    server, rdv_addr, rdv_port, tcp = start_stores(local_only, extra)
     procs: List[subprocess.Popen] = []
     pumps: List[_OutputPump] = []
     try:
         for slot in slots:
             proc = spawn_worker(slot, command,
-                                _slot_env(slot, rdv_addr, server.port, extra))
+                                _slot_env(slot, rdv_addr, rdv_port, extra))
             procs.append(proc)
             pumps.extend(_pumps(proc, slot.rank, args))
         # Poll every worker: a crash in any rank ends the job even while
@@ -258,7 +287,7 @@ def launch_job(args, command: List[str]) -> int:
                 exit_code = failed[0]
                 _terminate(procs)
             if unstarted and exit_code is None:
-                unstarted = {r for r in unstarted if server.store.get(
+                unstarted = {r for r in unstarted if tcp.store.get(
                     "worker_started", str(r)) is None}
                 if unstarted and time.monotonic() > deadline:
                     print(f"launch: ranks {sorted(unstarted)} failed to start "
@@ -276,7 +305,8 @@ def launch_job(args, command: List[str]) -> int:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-        server.close()
+        server.stop()
+        tcp.close()
 
 
 def _exit_on_sigterm(signum, frame):

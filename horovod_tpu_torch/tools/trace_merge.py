@@ -5,7 +5,7 @@ own catapult JSON (``core/timeline.py``: ``pid = rank``, spans tagged with
 the lockstep negotiation ``cycle`` id, and a ``clock_sync`` metadata record
 carrying ``wall_base_ns``, the wall-clock instant of that trace's
 ``ts=0``, plus ``server_offset_ns``, the offset to the rendezvous server's
-clock, which the port leaves None: its ``TCPStore`` has no clock).  This
+clock, from its ``GET /clock``).  This
 tool rebases every event onto the common clock and concatenates, so one
 Perfetto view shows every rank's NEGOTIATE/op lanes for the same
 collective.

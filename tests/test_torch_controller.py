@@ -364,8 +364,8 @@ info["hook_grads"] = [p.grad.tolist() for p in ps]
 # The coordinator names the first request it took: rank 0's goes out
 # first, and the others enqueue once its background loop has taken it
 # (within a cycle the coordinator reads the ranks in order).
-store = Store.connect(os.environ["HOROVOD_GLOO_RENDEZVOUS_ADDR"],
-                      int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]), 60)
+store = Store.connect(os.environ["HOROVOD_TORCH_STORE_ADDR"],
+                      int(os.environ["HOROVOD_TORCH_STORE_PORT"]), 60)
 if rank != 0:
     store.wait("mismatch", ["taken"], 60)
 mismatch = hvd.allreduce_async(

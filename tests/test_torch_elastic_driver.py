@@ -11,12 +11,18 @@
 - ``HostManager`` over the same sequence of host sets with the clock
   patched, ``WorkerStateRegistry``, the worker-post payloads and the
   notify signature, byte for byte.
-- The store's ``batch`` against the JAX ``MemoryStore``'s semantics, and
-  the ``store.put``, ``rendezvous.get`` and ``driver.tick`` fault sites.
+- The rendezvous client's ``batch`` against the JAX ``MemoryStore``'s
+  semantics, and the ``store.put``, ``rendezvous.get``,
+  ``store.get_serve`` and ``driver.tick`` fault sites, on the rendezvous
+  client and on the process groups' ``TCPStore`` client.
 - Both packages' ``ElasticDriver`` in process, on the same discovery
   sequence, spawning nothing: the same slot tables and epochs.
-- The launcher's elastic flags and refusals, and one module-scoped job in
-  which every rank dies: the launcher must exit non-zero promptly.
+- The launcher's elastic flags, its refusal of TPU-VM discovery, its
+  attachment to an external server, and one module-scoped job in which
+  every rank dies: the launcher must exit non-zero promptly.
+
+The in-process drivers and the worker-side client run against the port's
+rendezvous server in this process (``runner/rendezvous.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import subprocess
 import sys
 import textwrap
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -50,7 +57,12 @@ from horovod_tpu_torch.elastic import discovery, driver, registration
 from horovod_tpu_torch.elastic import rendezvous_client as rc
 from horovod_tpu_torch.runner import hosts
 from horovod_tpu_torch.runner import launch
-from horovod_tpu_torch.transport.store import StoreServer
+from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+from horovod_tpu_torch.transport.store import (
+    HTTPStoreClient,
+    Store,
+    StoreServer,
+)
 
 from .torch_port import one_torch_thread  # noqa: F401  (autouse)
 from .torch_port import run_job
@@ -357,8 +369,19 @@ def test_notify_signatures_match_jax():
 # the store's batch and the fault sites
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
+@pytest.fixture
 def server():
+    """A job's rendezvous server in this process, fresh for each test (a
+    driver's first publish is fenced on an empty store): ``store`` is the
+    driver's handle on it, ``port`` what the workers' client dials."""
+    srv = RendezvousServer(bind_addr="127.0.0.1")
+    port = srv.start()
+    yield types.SimpleNamespace(store=srv, port=port)
+    srv.stop()
+
+
+@pytest.fixture(scope="module")
+def tcp_server():
     srv = StoreServer(local_only=True)
     yield srv
     srv.close()
@@ -366,9 +389,8 @@ def server():
 
 @pytest.fixture
 def client(server):
-    from horovod_tpu_torch.transport.store import Store
-
-    return Store.connect("127.0.0.1", server.port, 10.0)
+    """The workers' client of the rendezvous server."""
+    return HTTPStoreClient("127.0.0.1", server.port, 10.0)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -391,27 +413,17 @@ def test_store_batch_matches_jax_memory_store(seed, client):
                 for r in ours] == theirs, ops
 
 
-class _Recorder:
-    """A TCPStore's calls, recorded and passed on."""
-
-    def __init__(self, tcp):
-        self.tcp = tcp
-        self.calls = []
-
-    def __getattr__(self, name):
-        def call(*args):
-            self.calls.append((name, args[0]))
-            return getattr(self.tcp, name)(*args)
-        return call
-
-
-def test_a_batch_of_sets_lands_in_one_server_command(client, monkeypatch):
-    rec = _Recorder(client.tcp)
-    monkeypatch.setattr(client, "tcp", rec)
+def test_a_batch_of_sets_lands_in_one_server_command(client, server,
+                                                     monkeypatch):
+    posts = []
+    post = client._keepalive_post
+    monkeypatch.setattr(client, "_keepalive_post",
+                        lambda path, body: posts.append(path) or
+                        post(path, body))
     client.batch([("set", "table", f"h:{i}", b"x") for i in range(4)] +
                  [("set", "driver", "epoch", b"3")])
-    assert rec.calls == [("multi_set", [f"table/h:{i}" for i in range(4)] +
-                          ["driver/epoch"])]
+    assert posts == ["/batch"]
+    assert server.store.keys("table") == [f"h:{i}" for i in range(4)]
 
 
 def test_a_get_of_an_absent_key_does_not_block(client):
@@ -431,10 +443,28 @@ def test_the_store_sites_inject_on_a_client(site, call, client, server):
     with pytest.raises(FaultInjectedError):
         call(client)
     call(client)
-    # The launcher's own handle on its server injects nothing.
+    # The driver's own handle on its server injects nothing.
     faults.configure(f"{site}:action=raise")
     server.store.batch([("set", "s", "k", b"v"), ("get", "s", "k")])
     server.store.get("s", "k")
+
+
+@pytest.mark.parametrize("site,call", [
+    ("store.put", lambda c: c.set("s", "k", b"v")),
+    ("rendezvous.get", lambda c: c.get("s", "k"))])
+def test_the_store_sites_inject_on_the_group_stores_client(site, call,
+                                                          tcp_server):
+    """The process groups' ``TCPStore`` client is a store client too (the
+    runtime's check-in and card table); the launcher's handle is not."""
+    client = Store.connect("127.0.0.1", tcp_server.port, 10.0)
+    faults.configure(f"{site}:nth=2:action=raise")
+    call(client)
+    with pytest.raises(FaultInjectedError):
+        call(client)
+    call(client)
+    faults.configure(f"{site}:action=raise")
+    tcp_server.store.set("s", "k", b"v")
+    tcp_server.store.get("s", "k")
 
 
 @pytest.mark.filterwarnings(
@@ -450,9 +480,21 @@ def test_the_driver_tick_site_kills_the_discovery_loop(server):
     d.stop()
 
 
-def test_store_get_serve_stays_refused_naming_the_journaled_server():
-    with pytest.raises(ValueError, match="ROADMAP A6.*journaled"):
-        faults.configure("store.get_serve:action=raise")
+@pytest.mark.parametrize("action,seconds", [("raise", 0.0),
+                                            ("delay_ms,300", 0.3)])
+def test_store_get_serve_fires_in_the_servers_handler(server, action,
+                                                       seconds):
+    """The site is the server's GET handler: a raise drops that serve and
+    the client's retry reads the value on the next; a delay holds it.  A
+    PUT does not pass the site."""
+    client = HTTPStoreClient("127.0.0.1", server.port, 10.0)
+    faults.configure(f"store.get_serve:nth=1:action={action}")
+    client.set("serve", "k", b"v")
+    assert not faults._clauses[0].fired
+    t0 = time.monotonic()
+    assert client.get("serve", "k") == b"v"
+    assert faults._clauses[0].fired
+    assert time.monotonic() - t0 >= seconds
 
 
 # ---------------------------------------------------------------------------
@@ -492,10 +534,6 @@ def test_both_drivers_publish_the_same_tables(server, monkeypatch):
                 d._tick(time.monotonic_ns())
             tables.append((d.epoch, _table(store, ids)))
         runs.append((tables, spawned))
-        # The next scope's keys must not see this run's: a fresh server.
-        if mod is driver:
-            for i in ids:
-                server.store.tcp.delete_key(f"{driver.RANK_AND_SIZE_SCOPE}/{i}")
     assert runs[0] == runs[1]
     assert [e for e, _ in runs[0][0]] == [0, 1, 2, 3, 4]
 
@@ -548,15 +586,37 @@ def test_tpu_metadata_discovery_is_refused_naming_the_script(tmp_path):
     assert "ROADMAP A6" in proc.stderr
 
 
-def test_an_external_rendezvous_is_refused_naming_its_item(tmp_path):
+def test_an_external_rendezvous_is_attached_not_hosted(tmp_path):
+    """With HOROVOD_RENDEZVOUS_EXTERNAL the elastic launcher publishes to
+    the named server, and its workers dial it."""
+    srv = RendezvousServer(bind_addr="127.0.0.1")
+    port = srv.start()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+             "1", "--min-np", "1", "sh", "-c",
+             "echo rdv=$HOROVOD_GLOO_RENDEZVOUS_PORT"],
+            cwd=str(tmp_path), capture_output=True, text=True, timeout=60,
+            env={**os.environ, "PYTHONPATH": str(REPO),
+                 "HOROVOD_RENDEZVOUS_EXTERNAL": f"127.0.0.1:{port}"})
+        assert proc.returncode == 0, proc.stderr
+        assert f"rdv={port}" in proc.stdout
+        assert srv.get(driver.DRIVER_SCOPE, "epoch") == b"0"
+        slot = json.loads(srv.get(driver.RANK_AND_SIZE_SCOPE, "localhost:0"))
+        assert slot["rank"] == 0 and slot["epoch"] == 0
+    finally:
+        srv.stop()
+
+
+def test_a_malformed_external_rendezvous_is_refused(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np", "1",
          "--min-np", "1", "true"],
         cwd=str(tmp_path), capture_output=True, text=True, timeout=60,
         env={**os.environ, "PYTHONPATH": str(REPO),
-             "HOROVOD_RENDEZVOUS_EXTERNAL": "127.0.0.1:1"})
+             "HOROVOD_RENDEZVOUS_EXTERNAL": "nohostport"})
     assert proc.returncode != 0
-    assert "journaled" in proc.stderr and "ROADMAP A6" in proc.stderr
+    assert "must be host:port" in proc.stderr
 
 
 # ---------------------------------------------------------------------------

@@ -215,7 +215,8 @@ def example(tmp_path_factory):
     with open(out_path, "w") as out, open(err_path, "w") as err:
         proc = subprocess.Popen(cmd, cwd=str(tmp), stdout=out, stderr=err,
                                 text=True, start_new_session=True,
-                                env={**os.environ, "PYTHONPATH": str(REPO)})
+                                env={**os.environ, "PYTHONPATH": str(REPO),
+                                     "OMP_NUM_THREADS": "1"})
         try:
             deadline = time.monotonic() + 45
             while "size=2" not in out_path.read_text():

@@ -334,6 +334,12 @@ def test_torch_state_takes_a_distributed_optimizer(monkeypatch):
         st.restore()
         assert not opt._handles
         assert _same(inner.state_dict(), saved)
+        # This world lives on and finishes the dropped allreduces in the
+        # background: their names are free again once it has taken them.
+        deadline = time.monotonic() + 10
+        while core_state.global_state().tensor_queue.names() and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
         _step(model, opt, 2)
     finally:
         hvd.shutdown()

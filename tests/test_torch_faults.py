@@ -139,7 +139,7 @@ def test_the_sites_and_actions_are_the_jax_lists():
     assert wired == {"enqueue.collective", "dispatch.collective",
                      "controller.negotiate", "controller.tally",
                      "worker.spawn", "ckpt.save", "store.put",
-                     "rendezvous.get", "driver.tick"}
+                     "rendezvous.get", "store.get_serve", "driver.tick"}
 
 
 # ---------------------------------------------------------------------------

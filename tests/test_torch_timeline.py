@@ -19,8 +19,9 @@ gloo sum documents (one ``LC_WIRE_REDUCE_SCATTER``, no
 ``NEGOTIATE_ALLREDUCE`` spans with both ranks' ticks; both ranks tag each
 op with the same cycle.
 (e) The knobs: ``HOROVOD_TIMELINE`` is honoured, ``HOROVOD_TIMELINE_
-CONTROL_PLANE=1`` is refused naming ROADMAP A6, and with no timeline there
-is no file and no writer thread; ``hvd.start_timeline``/``stop_timeline``.
+CONTROL_PLANE`` puts the rendezvous client's ``RVC_*`` spans on the active
+timeline, and with no timeline there is no file and no writer thread;
+``hvd.start_timeline``/``stop_timeline``.
 """
 
 from __future__ import annotations
@@ -608,7 +609,8 @@ def test_the_port_job_marks_cycles_and_names_its_ranks(port_job):
         sync = next(e for e in events
                     if e["name"] == timeline.CLOCK_SYNC_EVENT)
         assert sync["pid"] == rank and sync["args"]["rank"] == rank
-        assert sync["args"]["server_offset_ns"] is None
+        # Estimated from the launcher's rendezvous server's GET /clock.
+        assert isinstance(sync["args"]["server_offset_ns"], int)
         marks = [e["args"]["cycle"] for e in events if e["name"] == "CYCLE"]
         assert marks and marks == sorted(marks)
         # Every LC_NEGOTIATED names the cycle of the op it precedes.
@@ -669,14 +671,32 @@ def test_horovod_timeline_is_honoured(tmp_path, no_timeline_env):
     assert any(e["name"] == "CYCLE" for e in events)
 
 
-def test_control_plane_spans_are_refused_naming_a6(no_timeline_env):
+def test_control_plane_spans_land_on_the_active_timeline(tmp_path,
+                                                        no_timeline_env):
+    """The knob is no longer refused, and each store round trip of the
+    rendezvous client is an RVC_* span on the active timeline while the
+    spans are on."""
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    from horovod_tpu_torch.transport.store import HTTPStoreClient
+
+    path = tmp_path / "tl.json"
     no_timeline_env.setenv(env_mod.HOROVOD_TIMELINE_CONTROL_PLANE, "1")
-    with pytest.raises(ValueError, match="HOROVOD_TIMELINE_CONTROL_PLANE.*"
-                                         "ROADMAP A6"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
-    no_timeline_env.setenv(env_mod.HOROVOD_TIMELINE_CONTROL_PLANE, "0")
+    no_timeline_env.setenv(env_mod.HOROVOD_TIMELINE, str(path))
     hvd.init(device="cpu")
+    srv = RendezvousServer(bind_addr="127.0.0.1")
+    client = HTTPStoreClient("127.0.0.1", srv.start(), 10.0)
+    try:
+        client.set("s", "k", b"v")
+        assert client.get("s", "k") == b"v"
+        client.batch([("get", "s", "k"), ("keys", "s")])
+        no_timeline_env.setattr(timeline, "CONTROL_PLANE_ENABLED", False)
+        client.get("s", "k")
+    finally:
+        srv.stop()
+    hvd.shutdown()
+    spans = [e for e in json.loads(path.read_text()) if e.get("ph") == "X"]
+    assert [e["name"] for e in spans] == ["RVC_SET", "RVC_GET", "RVC_BATCH"]
+    assert spans[2]["args"] == {"ops": 2}
 
 
 def test_no_timeline_means_no_file_and_no_writer(tmp_path, no_timeline_env):

@@ -409,7 +409,8 @@ _SET = {env_mod.HOROVOD_TIMELINE: "/tmp/trace.json",
         env_mod.HOROVOD_NEGOTIATION_FANIN_DIR: "/tmp/fanin",
         env_mod.HOROVOD_NEGOTIATION_FANIN_HEARTBEAT_SECS: "1.0",
         env_mod.HOROVOD_NEGOTIATION_FANIN_VETO_EPOCHS: "2",
-        env_mod.HOROVOD_CONTROLLER_TOPOLOGY: "tree"}
+        env_mod.HOROVOD_CONTROLLER_TOPOLOGY: "tree",
+        env_mod.HOROVOD_TRANSPORT: "shm"}
 
 
 @pytest.fixture
@@ -450,6 +451,33 @@ def test_the_jax_coordinator_names_the_device_plane(clean_knobs):
                        match="HOROVOD_JAX_COORDINATOR.*HOROVOD_DATA_PLANE="
                              "nccl"):
         hvd.init(device="cpu")
+
+
+def test_every_jax_knob_is_read_refused_warned_or_tooling_only():
+    """Each ``HOROVOD_*`` name of ``horovod_tpu/common/env.py`` falls in
+    exactly one class: (a) the port reads it (its constant is used outside
+    ``common/env.py``), (b) ``hvd.init()`` refuses it naming its slice,
+    (c) it is warned about as tuning-only, (d) the JAX package reads it
+    only in tooling no slice brings (``JAX_TOOLING_ONLY_KNOBS``)."""
+    import re
+
+    from horovod_tpu.common import env as jax_env
+
+    jax_names = {v for k, v in vars(jax_env).items()
+                 if k.startswith("HOROVOD_") and isinstance(v, str)}
+    consts = {v: k for k, v in vars(env_mod).items()
+              if k.startswith("HOROVOD_") and isinstance(v, str)}
+    package = REPO / "horovod_tpu_torch"
+    sources = "\n".join(p.read_text() for p in package.rglob("*.py")
+                        if p != package / "common" / "env.py")
+    read = {v for v, k in consts.items()
+            if re.search(rf"\b{k}\b", sources)}
+    refused = {n for n, _, _ in env_mod.UNSUPPORTED_KNOBS} | {
+        env_mod.HOROVOD_JAX_COORDINATOR}
+    classes = [read, refused, set(env_mod.TUNING_ONLY_KNOBS),
+               set(env_mod.JAX_TOOLING_ONLY_KNOBS)]
+    for name in sorted(jax_names):
+        assert sum(name in c for c in classes) == 1, name
 
 
 @pytest.mark.parametrize("knob", env_mod.TUNING_ONLY_KNOBS)
